@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Where the device time goes in the PyTorch port's serving programs, on
+one NVIDIA GPU.
+
+Run from the repository root with no arguments:
+
+    python3 chip_profile.py
+
+For each program (serve b16 and b128 at 320x320, detect b1 at 320x320 and
+640x640; yunet_n, r04 EMA weights, bf16, fused, device NMS) it runs 5
+warm-up calls, then 20 calls under torch.profiler, then 20 calls without
+it. It prints the wall time per call (profiled and unprofiled), the sum of
+device kernel time per call, the busy share (device kernel time over the
+profiled wall) and the top device kernels, and writes the same to
+chiprun_out/chip_profile.json. The profiler slows the host, so the busy
+share it gives is a lower bound for the unprofiled program.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+import chip_smoke as cs
+
+CALLS, WARMUP, TOP = 20, 5, 15
+OUT = os.path.join(cs.ROOT, "chiprun_out", "chip_profile.json")
+
+
+def device_rows(prof, calls):
+    """(name, device ms per call, launches per call) of every device
+    kernel in the profile, largest first."""
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        dt = getattr(e, "device_time_total", None)
+        if dt is None:
+            dt = e.cuda_time_total
+        if dt:
+            rows.append((e.key, dt / calls / 1e3, e.count / calls))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profile_program(fn):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / CALLS * 1e3
+    t0 = time.perf_counter()
+    for _ in range(CALLS):
+        fn()
+    torch.cuda.synchronize()
+    bare = (time.perf_counter() - t0) / CALLS * 1e3
+    rows = device_rows(prof, CALLS)
+    if not rows:
+        raise RuntimeError("the profile holds no device kernel time")
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms_profiled": wall, "wall_ms_unprofiled": bare,
+            "device_kernel_ms": busy, "busy_share": busy / wall,
+            "top": rows[:TOP]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 1
+    from yunet_tpu_torch.apis import init_detector
+    smi = cs.nvidia_smi_line()
+    det = init_detector("yunet_n", cs.FIXTURE, device=cs.DEV, fused=True)
+    rng = np.random.RandomState(3)
+
+    def batch(n, hw):
+        return det._input([cs.face_image(rng, hw, hw, 4) for _ in range(n)])
+
+    progs = {"serve_b16_320": (det.serve_packed, batch(16, 320), 750),
+             "serve_b128_320": (det.serve_packed, batch(128, 320), 750),
+             "detect_b1_320": (det.detect_packed, batch(1, 320), 5000),
+             "detect_b1_640": (det.detect_packed, batch(1, 640), 5000)}
+    out = {"device": smi, "calls": CALLS}
+    for name, (fn, x, k) in progs.items():
+        r = profile_program(lambda: fn(x, k))
+        out[name] = r
+        cs.log(f"== {name}: wall {r['wall_ms_profiled']:.4f} ms/call "
+               f"profiled, {r['wall_ms_unprofiled']:.4f} unprofiled; device "
+               f"kernels {r['device_kernel_ms']:.4f} ms/call; busy share "
+               f"{r['busy_share']:.1%}")
+        for key, ms, n in r["top"]:
+            cs.log(f"   {ms:8.4f} ms x{n:6.1f}  {key[:90]}")
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    with open(OUT, "w") as f:
+        json.dump(out, f, indent=1)
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,58 @@
+"""High-level entry points — counterpart of ``yunet_tpu/apis.py:42-77``
+(reference mmdet/apis: init_detector, inference_detector).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .config import Config, get_config
+from .eval.detect import Detector
+from .models.detector import YuNet
+
+
+def init_detector(config: Union[str, Config],
+                  checkpoint: Optional[str] = None, *, device,
+                  dtype: torch.dtype = torch.bfloat16,
+                  fused: bool = False,
+                  trust_checkpoint: bool = False) -> Detector:
+    """Build a Detector on ``device`` from a preset name or Config and
+
+      * no checkpoint: random init from a ``torch.Generator`` seeded with
+        0 (drawn on the CPU, so every device gets the same weights);
+      * a reference ``.pth`` checkpoint (loaded by module name, tensors
+        only; ``trust_checkpoint=True`` allows a full unpickle, which runs
+        code from the file);
+      * a flat ``.npz`` of JAX parameter leaves (``p{i}``/``s{i}``, the
+        format of tests/fixtures/r04_ema.npz).
+    """
+    from .utils.jax_params import (load_flat_npz, load_pth_state_dict,
+                                   state_dict_from_jax)
+
+    cfg = get_config(config) if isinstance(config, str) else config
+    if checkpoint is None:
+        model = YuNet(cfg.model, device=torch.device("cpu"),
+                      generator=torch.Generator().manual_seed(0))
+        return Detector(cfg, model, device=device, dtype=dtype, fused=fused)
+    if checkpoint.endswith(".pth"):
+        sd = load_pth_state_dict(checkpoint, trusted=trust_checkpoint)
+    elif checkpoint.endswith(".npz"):
+        sd = state_dict_from_jax(*load_flat_npz(checkpoint, cfg.model))
+    else:
+        raise ValueError(f"unsupported checkpoint {checkpoint!r}: expected "
+                         "a .pth or a flat .npz")
+    return Detector(cfg, sd, device=device, dtype=dtype, fused=fused)
+
+
+def inference_detector(detector: Detector,
+                       imgs: Union[np.ndarray, Sequence[np.ndarray]],
+                       mode: str = "AUTO") -> Union[Dict, list]:
+    """Run detection on one image or a list of images (BGR ndarray)."""
+    single = isinstance(imgs, np.ndarray)
+    if single:
+        imgs = [imgs]
+    results = [detector.detect(img, mode=mode) for img in imgs]
+    return results[0] if single else results

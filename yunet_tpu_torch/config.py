@@ -1,0 +1,176 @@
+"""Dataclass configuration and the two shipped presets.
+
+A copy of ``yunet_tpu/config.py``'s dataclasses and presets: that file is
+framework-neutral, but importing it runs ``yunet_tpu/__init__.py``, which
+imports jax. A test holds this copy equal to the original, field by field.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from dataclasses import dataclass, field
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture plan (reference configs/yunet_n.py:104-131)."""
+
+    name: str = "yunet_n"
+    # stage 0 is the stem (in, mid, out); later stages are
+    # Conv4layerBlocks (in, out)
+    stage_channels: Tuple[Tuple[int, ...], ...] = (
+        (3, 16, 16), (16, 64), (64, 64), (64, 64), (64, 64), (64, 64))
+    downsample_idx: Tuple[int, ...] = (0, 2, 3, 4)
+    out_idx: Tuple[int, ...] = (3, 4, 5)
+    neck_in_channels: Tuple[int, ...] = (64, 64, 64)
+    num_classes: int = 1
+    head_in_channels: int = 64
+    feat_channels: int = 64
+    shared_stacked_convs: int = 1
+    stacked_convs: int = 0
+    use_kps: bool = True
+    kps_num: int = 5
+    strides: Tuple[int, ...] = (8, 16, 32)
+    prior_offset: float = 0.0
+    # training-only knobs of the JAX package, kept so the presets compare
+    # equal; the serving path here does not read them
+    remat_stages: Tuple[int, ...] = ()
+    composed_dp: bool = True
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    cls_weight: float = 1.0
+    bbox_weight: float = 5.0
+    obj_weight: float = 1.0
+    kps_weight: float = 0.1
+    kps_beta: float = 1.0 / 9.0
+    eiou_smooth_point: float = 0.1
+    eiou_eps: float = 1e-6
+
+
+@dataclass(frozen=True)
+class AssignerConfig:
+    center_radius: float = 2.5
+    candidate_topk: int = 10
+    iou_weight: float = 3.0
+    cls_weight: float = 1.0
+
+
+@dataclass(frozen=True)
+class TestConfig:
+    """Decode/NMS at test time (reference configs/yunet_n.py:139-145)."""
+
+    score_thr: float = 0.02
+    nms_iou_thr: float = 0.45
+    max_per_img: int = -1  # -1: keep everything above score_thr
+    # static cap for the on-device NMS path (host C++ NMS has no cap)
+    device_nms_pre: int = 5000
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    data_root: str = "data/widerface/"
+    train_ann: str = "data/widerface/labelv2/train/labelv2.txt"
+    train_img_prefix: str = "data/widerface/WIDER_train/images/"
+    val_ann: str = "data/widerface/labelv2/val/labelv2.txt"
+    val_img_prefix: str = "data/widerface/WIDER_val/images/"
+    gt_dir: str = "data/widerface/labelv2/val/gt/"
+    img_size: int = 640
+    crop_choice: Tuple[float, ...] = (0.5, 0.7, 0.9, 1.1, 1.3, 1.5)
+    flip_ratio: float = 0.5
+    max_gts: int = 128
+    samples_per_device: int = 16
+    workers: int = 4
+    min_size: float | None = None
+    decoded_cache: str | None = None
+    reduced_decode: bool = False
+    device_aug: bool = False
+    bank_size: int = 640
+    bank_canvas: int = 1152
+    bank_sharded: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 0.01
+    base_total_batch: int = 32
+    auto_scale_lr: bool = False
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    warmup_iters: int = 1500
+    warmup_ratio: float = 0.001
+    lr_decay_epochs: Tuple[int, ...] = (400, 544)
+    lr_decay_factor: float = 0.1
+    max_epochs: int = 640
+    checkpoint_interval: int = 80
+    log_interval: int = 50
+    seed: int = 0
+    bf16: bool = True
+    fused_kernels: bool = False
+    pallas_simota: bool = True
+    ema_momentum: float = 0.0
+    grad_clip: float = 0.0
+    bn_group: int = 0
+
+
+@dataclass(frozen=True)
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    assigner: AssignerConfig = field(default_factory=AssignerConfig)
+    test: TestConfig = field(default_factory=TestConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    work_dir: str = "./work_dirs/yunet_n"
+
+
+def yunet_n() -> Config:
+    """The shipped YuNet-n preset (reference configs/yunet_n.py)."""
+    return Config()
+
+
+def yunet_s() -> Config:
+    """The shipped YuNet-s preset (reference configs/yunet_s.py):
+    narrower stages, no shared head conv, tighter crop choices."""
+    return Config(
+        model=ModelConfig(
+            name="yunet_s",
+            stage_channels=((3, 16, 16), (16, 32), (32, 64), (64, 64),
+                            (64, 64), (64, 64)),
+            shared_stacked_convs=0,
+        ),
+        data=DataConfig(crop_choice=(0.3, 0.45, 0.6, 0.8, 1.0)),
+        work_dir="./work_dirs/yunet_s",
+    )
+
+
+_PRESETS = {"yunet_n": yunet_n, "yunet_s": yunet_s}
+
+
+def get_config(name: str) -> Config:
+    if name not in _PRESETS:
+        raise KeyError(f"unknown config '{name}'; have {sorted(_PRESETS)}")
+    cfg = _PRESETS[name]()
+    root = os.environ.get("YUNET_DATA_ROOT")
+    if root:
+        cfg = _retarget_data_root(cfg, root)
+    return cfg
+
+
+def _retarget_data_root(cfg: Config, root: str) -> Config:
+    """Repoint dataset paths at another root."""
+    d = cfg.data
+    old = d.data_root
+
+    def sub(p: str) -> str:
+        return p.replace(old, root.rstrip("/") + "/", 1) \
+            if p.startswith(old) else p
+
+    new_d = dataclasses.replace(
+        d, data_root=root, train_ann=sub(d.train_ann),
+        train_img_prefix=sub(d.train_img_prefix), val_ann=sub(d.val_ann),
+        val_img_prefix=sub(d.val_img_prefix), gt_dir=sub(d.gt_dir))
+    return dataclasses.replace(cfg, data=new_d)
