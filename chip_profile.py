@@ -7,9 +7,11 @@ Run from the repository root with no arguments:
     python3 chip_profile.py
 
 For each program (serve b16 and b128 at 320x320, detect b1 at 320x320 and
-640x640; yunet_n, r04 EMA weights, bf16, fused, device NMS) it runs 5
-warm-up calls, then 20 calls under torch.profiler, then 20 calls without
-it. It prints the wall time per call (profiled and unprofiled), the sum of
+640x640; yunet_n, r04 EMA weights, bf16, fused, device NMS; and one
+training step of yunet_n at 640x640 b16 with the shipped config: bf16
+trunk, streamed SimOTA kernel, from the same weights, on a seeded
+synthetic face batch) it runs 5 warm-up calls, then 20 calls under
+torch.profiler, then 20 calls without it. It prints the wall time per call (profiled and unprofiled), the sum of
 device kernel time per call, the busy share (device kernel time over the
 profiled wall) and the top device kernels, and writes the same to
 chiprun_out/chip_profile.json. The profiler slows the host, so the busy
@@ -79,6 +81,10 @@ def main() -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     from yunet_tpu_torch.apis import init_detector
+    from yunet_tpu_torch.config import yunet_n
+    from yunet_tpu_torch.train import init_train_state, make_train_step
+    from yunet_tpu_torch.utils.jax_params import (load_flat_npz,
+                                                  state_dict_from_jax)
     smi = cs.nvidia_smi_line()
     det = init_detector("yunet_n", cs.FIXTURE, device=cs.DEV, fused=True)
     rng = np.random.RandomState(3)
@@ -90,9 +96,21 @@ def main() -> int:
              "serve_b128_320": (det.serve_packed, batch(128, 320), 750),
              "detect_b1_320": (det.detect_packed, batch(1, 320), 5000),
              "detect_b1_640": (det.detect_packed, batch(1, 640), 5000)}
+    progs = {name: (lambda f=fn, x=x, k=k: f(x, k))
+             for name, (fn, x, k) in progs.items()}
+    cfg = yunet_n()
+    ts, opt = init_train_state(
+        cfg, steps_per_epoch=1000, total_batch=cfg.data.samples_per_device,
+        device=cs.DEV, state_dict=state_dict_from_jax(
+            *load_flat_npz(cs.FIXTURE, cfg.model)))
+    step = make_train_step(cfg, ts.model, opt, img_size=cfg.data.img_size)
+    tb = cs._to_device(cs.train_batch(np.random.RandomState(6),
+                                      cfg.data.samples_per_device,
+                                      cfg.data.img_size))
+    progs["train_b16_640"] = lambda: step(ts, tb)
     out = {"device": smi, "calls": CALLS}
-    for name, (fn, x, k) in progs.items():
-        r = profile_program(lambda: fn(x, k))
+    for name, fn in progs.items():
+        r = profile_program(fn)
         out[name] = r
         cs.log(f"== {name}: wall {r['wall_ms_profiled']:.4f} ms/call "
                f"profiled, {r['wall_ms_unprofiled']:.4f} unprofiled; device "

@@ -5,12 +5,15 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from yunet_tpu_torch/csrc/ (nvcc, sm_90a),
-compares each kernel with its plain PyTorch version on the card, drives the
-serving path (yunet_n at full width, trained r04 EMA weights from
-tests/fixtures/r04_ema.npz) through the user entry points, shows through
-the launch counters that the path ran the kernels, and times kernels and
-the path with CUDA events. Any failed check raises, and the script exits
+It builds the CUDA kernels from yunet_tpu_torch/csrc/ (nvcc, sm_90a, all
+at once), compares each kernel with its plain PyTorch version on the card
+at the shapes its path gives it, drives the serving path (yunet_n at full
+width, trained r04 EMA weights from tests/fixtures/r04_ema.npz) and the
+training path (10 steps of yunet_n at 640^2 b16, bf16, from the same
+weights, on seeded synthetic face batches) through the user entry points,
+shows through the launch counters that each path ran its kernels, and
+times kernels, their plain versions, library yardsticks and both paths
+with CUDA events. Any failed check raises, and the script exits
 non-zero. There is no CPU path: without a CUDA device it exits non-zero
 before printing any result.
 
@@ -34,6 +37,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "r04_ema.npz")
 IOU, SCORE = 0.45, 0.02
 DEV = "cuda"
+MAX_GTS = 128          # DataConfig.max_gts
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores, bf16 tensor-core FLOP/s
+HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 
 
 def log(*args):
@@ -76,26 +83,72 @@ def clustered_boxes(rng, n, size):
     return np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
 
 
-def face_image(rng, h, w, n_faces):
+def face_sample(rng, h, w, n_faces):
     """A noisy background with simple face renders (skin-tone ellipse,
     dark eyes, mouth), drawn with numpy in the style of
-    tools/make_synth_wider.py, on which the r04 weights were trained."""
+    tools/make_synth_wider.py, on which the r04 weights were trained.
+    Returns (image (h, w, 3) uint8, boxes (n, 4) xyxy, keypoints (n, 5, 3):
+    eyes, nose, mouth corners, visibility 1). Each face is drawn inside
+    its own window, with the same pixels as a whole-image draw."""
     img = rng.randint(40, 200, (h, w, 3)).astype(np.float32)
     img = (img + np.roll(img, 1, 0) + np.roll(img, 1, 1)) / 3
-    yy, xx = np.mgrid[0:h, 0:w]
+    boxes, kps = [], []
     for _ in range(n_faces):
         s = rng.uniform(24, min(h, w) / 3)
         cx, cy = rng.uniform(s, w - s), rng.uniform(s, h - s)
+        y0, y1 = max(int(cy - 0.6 * s) - 2, 0), min(int(cy + 0.6 * s) + 3, h)
+        x0, x1 = max(int(cx - 0.5 * s) - 2, 0), min(int(cx + 0.5 * s) + 3, w)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        win = img[y0:y1, x0:x1]
         face = ((xx - cx) / (0.40 * s)) ** 2 + ((yy - cy) / (0.50 * s)) ** 2
-        img[face <= 1] = (rng.randint(90, 160), rng.randint(120, 190),
+        win[face <= 1] = (rng.randint(90, 160), rng.randint(120, 190),
                           rng.randint(170, 240))
         for ex in (-0.18, 0.18):
             eye = (xx - cx - ex * s) ** 2 + (yy - cy + 0.13 * s) ** 2
-            img[eye <= (0.07 * s) ** 2] = 30
+            win[eye <= (0.07 * s) ** 2] = 30
         mouth = (np.abs(yy - cy - 0.27 * s) <= max(0.03 * s, 1)) & \
             (np.abs(xx - cx) <= 0.14 * s)
-        img[mouth] = (40, 40, 120)
-    return np.clip(img, 0, 255).astype(np.uint8)
+        win[mouth] = (40, 40, 120)
+        boxes.append((cx - 0.4 * s, cy - 0.5 * s, cx + 0.4 * s, cy + 0.5 * s))
+        kps.append([(cx - 0.18 * s, cy - 0.13 * s, 1.0),
+                    (cx + 0.18 * s, cy - 0.13 * s, 1.0),
+                    (cx, cy + 0.07 * s, 1.0),
+                    (cx - 0.14 * s, cy + 0.27 * s, 1.0),
+                    (cx + 0.14 * s, cy + 0.27 * s, 1.0)])
+    return (np.clip(img, 0, 255).astype(np.uint8),
+            np.asarray(boxes, np.float32).reshape(-1, 4),
+            np.asarray(kps, np.float32).reshape(-1, 5, 3))
+
+
+def face_image(rng, h, w, n_faces):
+    return face_sample(rng, h, w, n_faces)[0]
+
+
+def train_batch(rng, bsz, hw, *, empty=(), clustered=()):
+    """A training batch in the JAX layout: bsz face images at hw x hw
+    with 3-40 faces each, padded to MAX_GTS slots. Images in ``empty``
+    have no valid GT; the GTs of images in ``clustered`` are 24 heavily
+    overlapping boxes around two points (their priors fall in several GTs'
+    candidate sets at once: multi-matches)."""
+    imgs = np.zeros((bsz, hw, hw, 3), np.uint8)
+    gtb = np.zeros((bsz, MAX_GTS, 4), np.float32)
+    gtk = np.zeros((bsz, MAX_GTS, 5, 3), np.float32)
+    gtv = np.zeros((bsz, MAX_GTS), bool)
+    for i in range(bsz):
+        imgs[i], boxes, kps = face_sample(rng, hw, hw, rng.randint(3, 41))
+        if i in clustered:
+            c = rng.uniform(100, hw - 100, (2, 2))[rng.randint(0, 2, 24)]
+            c = c + rng.normal(0, 3, (24, 2))
+            wh = rng.uniform(40, 60, (24, 2))
+            boxes = np.concatenate([c - wh / 2, c + wh / 2], -1)
+            kps = np.concatenate([np.repeat(c[:, None], 5, 1),
+                                  np.ones((24, 5, 1))], -1)
+        n = len(boxes)
+        gtb[i, :n], gtk[i, :n] = boxes, kps
+        gtv[i, :n] = i not in empty
+    return {"image": imgs, "gt_bboxes": gtb,
+            "gt_labels": np.zeros((bsz, MAX_GTS), np.int32),
+            "gt_kps": gtk, "gt_valid": gtv}
 
 
 def convdp_unit_shapes(folded, cfg, h, w):
@@ -146,17 +199,50 @@ def plain_packed(det, x, top_k):
 # -- phases ----------------------------------------------------------------
 
 def phase_build():
+    """Build every native source at once, one compiler process each."""
+    from concurrent.futures import ThreadPoolExecutor
     from yunet_tpu_torch import native
-    from yunet_tpu_torch.ops import convdp, nms
-    for name, lib in (("convdp.cu", convdp.LIB), ("nms.cu", nms.LIB),
-                      ("native yunet_ops.cpp", native.LIB)):
+    from yunet_tpu_torch.ops import convdp, nms, simota
+    libs = {"convdp.cu": convdp.LIB, "nms.cu": nms.LIB,
+            "simota.cu": simota.LIB, "host_nms.cpp": native.LIB}
+
+    def build(lib):
         t0 = time.perf_counter()
         lib.get()
-        dt = time.perf_counter() - t0
-        log(f"[build] {name}: {dt:.2f} s")
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futures = {name: pool.submit(build, lib) for name, lib in libs.items()}
+        secs = {name: f.result() for name, f in futures.items()}
+    for name, lib in libs.items():
+        log(f"[build] {name}: {secs[name]:.2f} s")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"        {line.strip()}")
+
+
+def reset_launch_counts():
+    from yunet_tpu_torch.ops.convdp import fused_conv_dp
+    from yunet_tpu_torch.ops.nms import greedy_nms_keep
+    from yunet_tpu_torch.ops.simota import streamed_simota
+    for fn in (fused_conv_dp, greedy_nms_keep, streamed_simota):
+        fn.launches = 0
+
+
+def launch_counts():
+    from yunet_tpu_torch.ops.convdp import fused_conv_dp
+    from yunet_tpu_torch.ops.nms import greedy_nms_keep
+    from yunet_tpu_torch.ops.simota import streamed_simota
+    return {"fused_conv_dp": fused_conv_dp.launches,
+            "greedy_nms": greedy_nms_keep.launches,
+            "simota_streamed": streamed_simota.launches}
+
+
+def bound_ms(nbytes, ops, peak):
+    """The least time for the work on an H100: the larger of the bytes
+    over the memory rate and the operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def phase_nms():
@@ -207,9 +293,18 @@ def phase_nms():
         ms = cuda_ms(lambda: greedy_nms_keep(boxes, counts, IOU))
         plain = cuda_ms(lambda: greedy_nms_keep_plain(boxes, counts, IOU),
                         warmup=1, iters=2, windows=3)
-        times[f"b{bsz}_k{kk}_n{cnt}"] = {"ms": ms, "plain_ms": plain}
+        # the bound: boxes and counts read, keep written; the IoU work
+        # this data needs, ~14 f32 operations for each pair (i, j > i)
+        # with i kept, j a candidate
+        keep = greedy_nms_keep_plain(boxes, counts, IOU)[:, :cnt]
+        pairs = int((keep * (cnt - 1 - torch.arange(cnt, device=DEV))).sum())
+        bnd, by = bound_ms(boxes.numel() * 4 + bsz * 4 + bsz * kk,
+                           14 * pairs, F32_FLOPS)
+        times[f"b{bsz}_k{kk}_n{cnt}"] = {"ms": ms, "plain_ms": plain,
+                                         "bound_ms": bnd, "bound_by": by}
         log(f"[nms] time B={bsz} K={kk} n={cnt}: kernel {ms:.4f} ms, "
-            f"plain {plain:.2f} ms")
+            f"plain {plain:.2f} ms, bound {bnd:.6f} ms ({by}; {pairs} "
+            "IoU pairs)")
     return max_err, times["b16_k750_n300"]
 
 
@@ -222,8 +317,12 @@ def _ulp_bf16(t):
 def phase_convdp(folded, cfg):
     """The ConvDP kernel against its plain version at every unit shape of
     yunet_n's b1 fused forward at 320^2 and 640^2, plus ragged 37x45 and
-    Cin=3: f32 within 1e-5, bf16 within one bf16 ulp of the output."""
+    Cin=3: f32 within 1e-5, bf16 within one bf16 ulp of the output. Times
+    the 640^2 units in bf16: the kernel, its plain version, and the library
+    pair (F.conv2d 1x1 + depthwise F.conv2d, bf16, on the same memory as
+    an NCHW channels-last view), with the bound of each unit summed."""
     import torch
+    import torch.nn.functional as F
     from yunet_tpu_torch.ops.convdp import fused_conv_dp, fused_conv_dp_plain
     rng = np.random.RandomState(1)
     cases = []
@@ -240,7 +339,8 @@ def phase_convdp(folded, cfg):
         cases += [(f"{h}x{w}:{ci}->{co}:relu{int(relu)}", n, h, w, *r, relu)
                   for relu in (True, False)]
     max_err = {"f32": 0.0, "bf16_ulps": 0.0}
-    t_kernel = t_plain = 0.0
+    t_kernel = t_plain = t_lib = 0.0
+    t_bound, t_bytes, t_ops = 0.0, 0.0, 0.0
     seen = set()
     for name, n, h, w, w1, b1, wd, bd, relu in cases:
         x = torch.from_numpy(rng.uniform(0, 3, (n, h, w, w1.shape[0]))
@@ -268,19 +368,44 @@ def phase_convdp(folded, cfg):
                                                relu=relu))
             pms = cuda_ms(lambda: fused_conv_dp_plain(xb, w1, b1, wd, bd,
                                                       relu=relu))
+            cin, cout = w1.shape[-2], w1.shape[-1]
+            lib_w = (w1.reshape(cin, cout).t().reshape(cout, cin, 1, 1)
+                     .to(torch.bfloat16), b1.to(torch.bfloat16),
+                     wd.reshape(9, cout).t().reshape(cout, 1, 3, 3)
+                     .to(torch.bfloat16), bd.to(torch.bfloat16))
+
+            def library(xl=xb.permute(0, 3, 1, 2), wts=lib_w, co=cout,
+                        act=relu):
+                y = F.conv2d(F.conv2d(xl, wts[0], wts[1]), wts[2], wts[3],
+                             padding=1, groups=co)
+                return F.relu(y) if act else y
+            lms = cuda_ms(library)
             t_kernel += ms
             t_plain += pms
-            key = (h, w, w1.shape[0], w1.shape[1])
+            t_lib += lms
+            # bf16 activations in and out, f32 weights; the pointwise
+            # and depthwise multiply-adds at the bf16 tensor-core peak
+            ub = (h * w * (cin + cout) * 2 + (cin * cout + 11 * cout) * 4)
+            uo = 2 * h * w * cout * (cin + 9 + 1)
+            t_bound += bound_ms(ub, uo, BF16_FLOPS)[0]
+            t_bytes += ub / HBM_BPS * 1e3
+            t_ops += uo / BF16_FLOPS * 1e3
+            key = (h, w, cin, cout)
             if key not in seen:
                 seen.add(key)
-                log(f"[convdp] time {name} {h}x{w} {w1.shape[0]}->"
-                    f"{w1.shape[1]} bf16: kernel {ms:.4f} ms, plain "
-                    f"{pms:.4f} ms")
+                log(f"[convdp] time {name} {h}x{w} {cin}->{cout} bf16: "
+                    f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
+                    f"{lms:.4f} ms, bound {bound_ms(ub, uo, BF16_FLOPS)[0]:.6f}"
+                    " ms")
         log(f"[convdp] {name} N={n} {h}x{w} {w1.shape[0]}->{w1.shape[1]}: "
             f"f32 err {err:.2e}, bf16 {ulps:.2f} ulp")
+    by = "bytes" if t_bytes >= t_ops else "operations"
     log(f"[convdp] 640^2 b1 bf16, all units: kernel {t_kernel:.4f} ms, "
-        f"plain {t_plain:.4f} ms")
-    return max_err, t_kernel, t_plain
+        f"plain {t_plain:.4f} ms, library pair {t_lib:.4f} ms, bound "
+        f"{t_bound:.6f} ms ({by})")
+    return max_err, {"ms": t_kernel, "plain_ms": t_plain,
+                     "library_ms": t_lib, "bound_ms": t_bound,
+                     "bound_by": by}
 
 
 def _pair(ba, bb, *, atol, rtol, score_atol):
@@ -324,26 +449,23 @@ def phase_slice():
     from yunet_tpu_torch import native
     from yunet_tpu_torch.apis import init_detector
     from yunet_tpu_torch.eval.detect import Detector
-    from yunet_tpu_torch.ops.convdp import fused_conv_dp
-    from yunet_tpu_torch.ops.nms import device_nms_batched, greedy_nms_keep
+    from yunet_tpu_torch.ops.nms import device_nms_batched
 
     rng = np.random.RandomState(2)
     imgs = [face_image(rng, 320, 320, rng.randint(2, 7)) for _ in range(16)]
     img640 = face_image(rng, 640, 640, 8)
     det = init_detector("yunet_n", FIXTURE, device=DEV)
 
-    # the main path, with the launch counters from zero
-    fused_conv_dp.launches = 0
-    greedy_nms_keep.launches = 0
+    # the serving path, with the launch counters from zero
+    reset_launch_counts()
     batch = det.detect_batch(imgs, "AUTO", use_device_nms=True)
     fdet = Detector(det.cfg, det.model, device=DEV, fused=True)
     single = fdet.detect(img640, use_device_nms=True)
     torch.cuda.synchronize()
-    launches = {"fused_conv_dp": fused_conv_dp.launches,
-                "greedy_nms": greedy_nms_keep.launches}
-    log(f"[slice] launches on the main path: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
+    launches = launch_counts()
+    log(f"[slice] launches on the serving path: {launches}")
+    for name in ("fused_conv_dp", "greedy_nms"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  "main path")
     counts = [r["bboxes"].shape[0] for r in batch]
@@ -445,6 +567,233 @@ def phase_times(fdet):
     torch.cuda.synchronize()
 
 
+def _to_device(batch):
+    import torch
+    return {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}
+
+
+def train_priors(cfg, hw):
+    """The (P, 4) prior table at hw x hw and its +0.5*stride offset copy,
+    which the assignment takes."""
+    import torch
+    from yunet_tpu_torch.ops.priors import grid_priors
+    priors = torch.from_numpy(grid_priors(
+        [(hw // s, hw // s) for s in cfg.strides], cfg.strides,
+        cfg.prior_offset)).to(DEV)
+    return priors, torch.cat([priors[:, :2] + priors[:, 2:] * 0.5,
+                              priors[:, 2:]], dim=-1)
+
+
+def simota_inputs(model, batch, priors, offset):
+    """The streamed SimOTA's inputs from the model's own eval forward (f32)
+    on a training batch: fused scores (B, P), offset priors, decoded boxes,
+    GT rows, the label-0 one-hot column and the validity mask."""
+    import torch
+    from yunet_tpu_torch.ops.boxes import bbox_decode, fuse_score
+    with torch.inference_mode():
+        flat = model.forward_flat(
+            batch["image"].float().permute(0, 3, 1, 2).contiguous())
+    scores = fuse_score(flat["cls"][..., 0].float(),
+                        flat["obj"][..., 0].float())
+    return (scores.contiguous(), offset,
+            bbox_decode(priors, flat["bbox"].float()).contiguous(),
+            batch["gt_bboxes"], (batch["gt_labels"] == 0).float(),
+            batch["gt_valid"])
+
+
+def phase_simota(model, cfg, bsz=16, hw=640):
+    """The streamed SimOTA kernel against its plain version at the main
+    path's shapes (B=16, P=8400 at 640^2, G=128 slots, 3-40 faces an
+    image, image 0 with no valid GT, image 1 with clustered GTs): all four
+    outputs EQUAL; then the assignment assembled from the kernel's outputs
+    against the dense sim_ota_assign on the card (fg_mask and matched_gt
+    equal, matched_iou within 1e-6). Times both and computes the bound."""
+    import torch
+    from yunet_tpu_torch.ops.assign import (assemble_streamed, dynamic_k,
+                                            sim_ota_assign_batched)
+    from yunet_tpu_torch.ops.simota import (streamed_simota,
+                                            streamed_simota_plain)
+    batch = _to_device(train_batch(np.random.RandomState(4), bsz, hw,
+                                   empty=(0,), clustered=(1,)))
+    priors, offset = train_priors(cfg, hw)
+    ins = simota_inputs(model, batch, priors, offset)
+    got = streamed_simota(*ins)
+    want = streamed_simota_plain(*ins)
+    torch.cuda.synchronize()
+    for name, g, w in zip(got._fields, got, want):
+        if not torch.equal(g, w):
+            bad = int((g != w).sum())
+            raise AssertionError(f"SimOTA kernel != plain ({name}): {bad} "
+                                 "elements differ")
+    iou_err = float((got.topk_iou - want.topk_iou).abs().max())
+    gv = batch["gt_valid"]
+    k = got.cand_idx.shape[-1]
+    # multi-matches in the clustered image: priors taken by several GTs
+    take = (torch.arange(k, device=DEV)
+            < dynamic_k(got.topk_iou, gv)[..., None])
+    count = torch.zeros(got.valid_prior.shape, dtype=torch.int32,
+                        device=DEV).scatter_add_(
+        1, got.cand_idx.reshape(bsz, -1).long(),
+        take.reshape(bsz, -1).int())
+    multi = (count > 1).sum(1).tolist()
+    log(f"[simota] B={bsz} P={priors.shape[0]} G={MAX_GTS}: kernel == plain "
+        f"(valid GTs per image {gv.sum(1).tolist()}, valid priors "
+        f"{int(got.valid_prior.sum())}, multi-matched priors per image "
+        f"{multi}); topk_iou max abs err {iou_err}")
+    if multi[1] == 0 or got.valid_prior[0].any():
+        raise AssertionError("the clustered image has no multi-match, or "
+                             "the image without GTs has valid priors")
+
+    scores, offset, decoded = ins[0][..., None], ins[1], ins[2]
+    args = (scores, offset, decoded, batch["gt_bboxes"],
+            batch["gt_labels"], gv)
+    res = assemble_streamed(got.valid_prior, got.best_gt, got.cand_idx,
+                            got.topk_iou, batch["gt_bboxes"], gv, decoded)
+    dense = sim_ota_assign_batched(*args, use_streamed=False)
+    if not (torch.equal(res.fg_mask, dense.fg_mask)
+            and torch.equal(res.matched_gt, dense.matched_gt)):
+        raise AssertionError("streamed assignment != dense sim_ota_assign")
+    miou = float((res.matched_iou - dense.matched_iou).abs().max())
+    if miou > 1e-6:
+        raise AssertionError(f"matched_iou differs by {miou}")
+    log(f"[simota] assembled == dense sim_ota_assign: {int(res.fg_mask.sum())}"
+        f" positives, matched_iou max abs diff {miou}")
+
+    ms = cuda_ms(lambda: streamed_simota(*ins))
+    plain = cuda_ms(lambda: streamed_simota_plain(*ins), warmup=1, iters=3)
+    # the bound: every input read and output written once; ~45 f32
+    # operations (one of them a log, one a log1p, one a sqrt) for each
+    # (prior, valid GT) pair this batch holds
+    nbytes = sum(t.numel() * t.element_size() for t in ins + tuple(got))
+    pairs = priors.shape[0] * int(gv.sum())
+    bnd, by = bound_ms(nbytes, 45 * pairs, F32_FLOPS)
+    log(f"[simota] time: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bnd:.6f} ms ({by}; {nbytes} bytes, {pairs} live pairs)")
+    return iou_err, {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                     "bound_by": by}
+
+
+def plain_targets(aux, batch, cfg):
+    """The targets of one step rebuilt from the step's own assignment
+    inputs with the streamed SimOTA's plain version."""
+    from yunet_tpu_torch.ops.assign import assemble_streamed
+    from yunet_tpu_torch.ops.boxes import fuse_score
+    from yunet_tpu_torch.ops.simota import streamed_simota_plain
+    from yunet_tpu_torch.train.targets import targets_from_assign
+    _, offset = train_priors(cfg.model, batch["image"].shape[1])
+    a = cfg.assigner
+    sa = streamed_simota_plain(
+        fuse_score(aux["cls"][..., 0], aux["obj"]), offset, aux["decoded"],
+        batch["gt_bboxes"], (batch["gt_labels"] == 0).float(),
+        batch["gt_valid"], center_radius=a.center_radius,
+        k=a.candidate_topk, iou_weight=a.iou_weight,
+        cls_weight=a.cls_weight)
+    res = assemble_streamed(*sa, batch["gt_bboxes"], batch["gt_valid"],
+                            aux["decoded"])
+    return targets_from_assign(res, batch["gt_bboxes"], batch["gt_labels"],
+                               batch["gt_kps"],
+                               num_classes=cfg.model.num_classes,
+                               kps_num=cfg.model.kps_num)
+
+
+def phase_train(sd):
+    """The training slice through its entry points: yunet_n at full
+    width, the shipped config (bf16 trunk, streamed SimOTA), r04 weights,
+    10 steps at b16 640^2 on seeded synthetic batches, with the launch
+    counters from zero. Then: 5 steps repeated on one batch at the base lr
+    lower the loss; one f32 step's targets equal those rebuilt with the
+    plain SimOTA from the step's own inputs."""
+    import dataclasses
+    import torch
+    from yunet_tpu_torch.config import yunet_n
+    from yunet_tpu_torch.train import init_train_state, make_train_step
+    cfg = yunet_n()
+    bsz, hw = cfg.data.samples_per_device, cfg.data.img_size
+    rng = np.random.RandomState(5)
+    batches = [_to_device(train_batch(rng, bsz, hw)) for _ in range(3)]
+    ts, opt = init_train_state(cfg, steps_per_epoch=1000, total_batch=bsz,
+                               device=DEV, state_dict=sd)
+    step = make_train_step(cfg, ts.model, opt, img_size=hw)
+
+    reset_launch_counts()
+    metrics = [step(ts, batches[i % 3])[1] for i in range(10)]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"[train] launches on the training path: {launches}")
+    if launches["simota_streamed"] != 2 * 10:
+        raise AssertionError("the streamed SimOTA kernel did not run "
+                             "twice (two launches) in every step")
+    rows = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, r in enumerate(rows):
+        log(f"[train] step {i}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r.items()))
+        if not all(np.isfinite(list(r.values()))) or r["num_pos"] <= 0:
+            raise AssertionError(f"step {i}: non-finite loss or no positives")
+
+    # the base lr from the first step (the warmup would start at 1e-5,
+    # where five steps move the loss less than bf16 rounding does)
+    cfg_lr = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, warmup_iters=0))
+    fresh, fopt = init_train_state(cfg_lr, steps_per_epoch=1000,
+                                   total_batch=bsz, device=DEV, state_dict=sd)
+    fstep = make_train_step(cfg_lr, fresh.model, fopt, img_size=hw)
+    rep = [float(fstep(fresh, batches[0])[1]["loss"]) for _ in range(5)]
+    log(f"[train] 5 steps on one batch at lr {cfg.train.lr}: {rep}")
+    if not rep[-1] < rep[0]:
+        raise AssertionError("repeated steps on one batch did not lower "
+                             "the loss")
+
+    # one f32 step: the targets the kernel built == the plain rebuild
+    cfg32 = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, bf16=False))
+    torch.backends.cudnn.deterministic = True
+    ts32, opt32 = init_train_state(cfg32, steps_per_epoch=1000,
+                                   total_batch=bsz, device=DEV,
+                                   state_dict=sd)
+    step32 = make_train_step(cfg32, ts32.model, opt32, img_size=hw)
+    _, m32, aux = step32(ts32, batches[1], return_aux=True)
+    want = plain_targets(aux, batches[1], cfg32)
+    torch.backends.cudnn.deterministic = False
+    for k, v in aux["targets"].items():
+        if not torch.equal(v, want[k]):
+            raise AssertionError(f"f32 step: target {k} != plain rebuild")
+    log(f"[train] f32 step: loss {float(m32['loss']):.4f}, targets equal to "
+        f"the plain rebuild ({int(want['num_pos'].sum())} positives)")
+    return launches, batches
+
+
+def phase_train_times(sd, batch):
+    """ms per train step at b16 640^2 bf16 (CUDA events, medians of 5
+    windows of 3 steps): the shipped config (streamed SimOTA kernel), then
+    pallas_simota=False (the dense assignment), in the order kernel, dense,
+    dense, kernel."""
+    import dataclasses
+    from yunet_tpu_torch.config import yunet_n
+    from yunet_tpu_torch.train import init_train_state, make_train_step
+    steps = {}
+    bsz = yunet_n().data.samples_per_device
+    for dense in (False, True):
+        cfg = yunet_n()
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, pallas_simota=not dense))
+        ts, opt = init_train_state(cfg, steps_per_epoch=1000,
+                                   total_batch=bsz, device=DEV,
+                                   state_dict=sd)
+        step = make_train_step(cfg, ts.model, opt,
+                               img_size=cfg.data.img_size)
+        steps["dense" if dense else "kernel"] = (
+            lambda st=step, s=ts: st(s, batch))
+    out = {}
+    for which in ("kernel", "dense", "dense", "kernel"):
+        out.setdefault(which, []).append(
+            cuda_ms(steps[which], warmup=2, iters=3))
+    for which, v in out.items():
+        log(f"[time] train step b16 640^2 bf16, {which} SimOTA: "
+            f"{v[0]:.4f} / {v[1]:.4f} ms ({bsz / (min(v) / 1e3):.1f} img/s "
+            "at the best)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -466,26 +815,37 @@ def main() -> int:
     phase_build()
     nms_err, nms_t = phase_nms()
     cfg = yunet_n().model
+    sd = state_dict_from_jax(*load_flat_npz(FIXTURE, cfg))
     model = YuNet(cfg, device=DEV)
-    model.load_state_dict(state_dict_from_jax(*load_flat_npz(FIXTURE, cfg)))
-    conv_err, conv_ms, conv_plain = phase_convdp(
-        fold_inference_params(model, cfg), cfg)
-    _, fdet, launches = phase_slice()
+    model.load_state_dict(sd)
+    conv_err, conv_t = phase_convdp(fold_inference_params(model, cfg), cfg)
+    simota_err, simota_t = phase_simota(model, cfg)
+    _, fdet, serve_launches = phase_slice()
+    train_launches, batches = phase_train(sd)
     phase_times(fdet)
+    phase_train_times(sd, batches[0])
 
     kernels = [
         {"name": "greedy_nms", "route": "cuda",
          "source": "yunet_tpu_torch/csrc/nms.cu",
          "replaces": "yunet_tpu/ops/nms_pallas.py:78",
          "also_replaces": "yunet_tpu/ops/nms_pallas.py:40",
-         "launches": launches["greedy_nms"], "max_abs_err": nms_err,
-         "ms": nms_t["ms"], "plain_ms": nms_t["plain_ms"]},
+         "launches": serve_launches["greedy_nms"], "max_abs_err": nms_err,
+         # no single PyTorch call computes greedy NMS (no torchvision)
+         "library_ms": None, **nms_t},
         {"name": "fused_conv_dp", "route": "cuda",
          "source": "yunet_tpu_torch/csrc/convdp.cu",
          "replaces": "yunet_tpu/ops/convdp_pallas.py:29",
-         "launches": launches["fused_conv_dp"],
-         "max_abs_err": conv_err["f32"], "ms": conv_ms,
-         "plain_ms": conv_plain},
+         "launches": serve_launches["fused_conv_dp"],
+         "max_abs_err": conv_err["f32"], **conv_t},
+        {"name": "simota_streamed", "route": "cuda",
+         "source": "yunet_tpu_torch/csrc/simota.cu",
+         "replaces": "yunet_tpu/ops/simota_pallas.py:233",
+         "also_replaces": "yunet_tpu/ops/simota_pallas.py:118",
+         "launches": train_launches["simota_streamed"],
+         "max_abs_err": simota_err,
+         # no single PyTorch call computes the SimOTA reductions
+         "library_ms": None, **simota_t},
     ]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -159,3 +159,14 @@ def test_resize_img_needs_no_cv2_when_sizes_match():
     np.testing.assert_array_equal(out[:100, :150], img)
     out, s = resize_img(_img(320, 320, 0), (320, 320))
     assert out.shape == (320, 320, 3) and s == 1.0
+
+
+def test_host_nms_source_is_the_jax_packages():
+    """native.py builds the port's own copy of the host NMS source; the
+    copy stays byte-equal to the JAX package's original."""
+    from yunet_tpu_torch import native
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert native.SOURCE.startswith(os.path.join(root, "yunet_tpu_torch"))
+    with open(native.SOURCE, "rb") as a, open(os.path.join(
+            root, "yunet_tpu", "native", "yunet_ops.cpp"), "rb") as b:
+        assert a.read() == b.read()

@@ -49,14 +49,20 @@ class YuNet(nn.Module):
         self.neck.reset_parameters(generator)
         self.bbox_head.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+    def forward(self, x: torch.Tensor, bn_group: int = 0
+                ) -> Dict[str, List[torch.Tensor]]:
         """x: (B, 3, H, W) raw BGR, H and W multiples of 32. Returns the
-        per-level NCHW maps of each head branch."""
-        return self.bbox_head(self.neck(self.backbone(x)))
+        per-level NCHW maps of each head branch. In training mode
+        (``self.train()``) BatchNorm uses batch statistics, over groups of
+        ``bn_group`` samples when 0 < bn_group < B (GhostBN), and updates
+        its running statistics in place."""
+        return self.bbox_head(self.neck(self.backbone(x, bn_group),
+                                        bn_group), bn_group)
 
-    def forward_flat(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward_flat(self, x: torch.Tensor, bn_group: int = 0
+                     ) -> Dict[str, torch.Tensor]:
         """Forward + per-level flatten to (B, P, C) tensors (prior order)."""
-        return flatten_level_outputs(self.forward(x))
+        return flatten_level_outputs(self.forward(x, bn_group))
 
     def feature_test(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Raw multi-level outputs flattened in the reference export order

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from ..config import ModelConfig
 from ..ops.convdp import fused_conv_dp
 from .detector import YuNet
-from .layers import ConvDPUnit
+from .layers import ConvDPUnit, library_conv2d
 
 
 @torch.no_grad()
@@ -113,7 +113,7 @@ def _unit(u: FoldedUnit, y: torch.Tensor, use_kernel: bool) -> torch.Tensor:
                              relu=u.relu)
     w1, b1, wd, bd = u.conv_weights(y.dtype)
     z = F.conv2d(y.permute(0, 3, 1, 2), w1, b1)
-    z = F.conv2d(z, wd, bd, padding=1, groups=wd.shape[0])
+    z = library_conv2d(z, wd, bd, padding=1, groups=wd.shape[0])
     if u.relu:
         z = F.relu(z)
     return z.permute(0, 2, 3, 1)

@@ -1,5 +1,4 @@
-"""YuNet head, forward only — counterpart of
-``yunet_tpu/models/head.py:56-125`` (reference
+"""YuNet head — counterpart of ``yunet_tpu/models/head.py`` (reference
 mmdet/models/dense_heads/yunet_head.py:112-247).
 
 Per level: an optional shared ConvDPUnit stack, then four prediction
@@ -57,14 +56,14 @@ class YuNetHead(nn.Module):
                 getattr(self, f"multi_level_{b}")[lvl].reset_parameters(
                     generator)
 
-    def forward(self, feats: List[torch.Tensor]
+    def forward(self, feats: List[torch.Tensor], bn_group: int = 0
                 ) -> Dict[str, List[torch.Tensor]]:
         """Per-level NCHW maps for each branch."""
         out: Dict[str, List[torch.Tensor]] = {b: [] for b in self.branches}
         for lvl, feat in enumerate(feats):
             if self.multi_level_share_convs is not None:
                 for m in self.multi_level_share_convs[lvl]:
-                    feat = m(feat)
+                    feat = m(feat, bn_group)
             for b in self.branches:
                 out[b].append(getattr(self, f"multi_level_{b}")[lvl](feat))
         return out

@@ -31,10 +31,11 @@ class TFPN(nn.Module):
         for m in self.lateral_convs:
             m.reset_parameters(generator)
 
-    def forward(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, feats: List[torch.Tensor], bn_group: int = 0
+                ) -> List[torch.Tensor]:
         feats = list(feats)
         for i in range(len(feats) - 1, 0, -1):
-            feats[i] = self.lateral_convs[i](feats[i])
+            feats[i] = self.lateral_convs[i](feats[i], bn_group)
             feats[i - 1] = feats[i - 1] + upsample2x_nearest(feats[i])
-        feats[0] = self.lateral_convs[0](feats[0])
+        feats[0] = self.lateral_convs[0](feats[0], bn_group)
         return feats

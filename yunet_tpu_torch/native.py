@@ -1,10 +1,10 @@
 """Exact host greedy NMS — the default NMS of ``Detector.detect`` —
 counterpart of ``yunet_tpu/native/__init__.py:71-89``.
 
-Builds the JAX package's C++ source (``yunet_tpu/native/yunet_ops.cpp``)
-by path with ``g++`` into ``yunet_tpu_torch/_build/`` at first use; it
-does not import ``yunet_tpu``. If the build fails, this raises: there is
-no slower fallback that would hide it.
+Builds ``csrc/host_nms.cpp`` (a copy of the JAX package's
+``yunet_tpu/native/yunet_ops.cpp``, held byte-equal to it by a test) with
+``g++`` into ``yunet_tpu_torch/_build/`` at first use. If the build fails,
+this raises: there is no slower fallback that would hide it.
 """
 
 from __future__ import annotations
@@ -14,10 +14,9 @@ import os
 
 import numpy as np
 
-from .ops._build import GXX_FLAGS, PKG_DIR, NativeLib
+from .ops._build import CSRC_DIR, GXX_FLAGS, NativeLib
 
-SOURCE = os.path.join(os.path.dirname(PKG_DIR), "yunet_tpu", "native",
-                      "yunet_ops.cpp")
+SOURCE = os.path.join(CSRC_DIR, "host_nms.cpp")
 _FP = ctypes.POINTER(ctypes.c_float)
 _IP = ctypes.POINTER(ctypes.c_int)
 LIB = NativeLib(

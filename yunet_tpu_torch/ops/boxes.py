@@ -1,5 +1,5 @@
-"""Box / keypoint decode and score fusion on tensors
-(counterpart of ``yunet_tpu/ops/boxes.py:18-43``).
+"""Box / keypoint decode-encode, IoU and score fusion on tensors
+(counterpart of ``yunet_tpu/ops/boxes.py``).
 
   bbox:  cxy = pred[..., :2] * stride + prior_xy
          wh  = exp(pred[..., 2:]) * stride
@@ -30,6 +30,49 @@ def kps_decode(priors: torch.Tensor, kps_pred: torch.Tensor) -> torch.Tensor:
     return pts.reshape(kps_pred.shape)
 
 
+def kps_encode(priors: torch.Tensor, kps: torch.Tensor) -> torch.Tensor:
+    """Inverse of kps_decode (reference yunet_head.py:395-402)."""
+    nk = kps.shape[-1] // 2
+    pts = kps.reshape(*kps.shape[:-1], nk, 2)
+    pts = (pts - priors[..., None, :2]) / priors[..., None, 2:]
+    return pts.reshape(kps.shape)
+
+
 def fuse_score(cls_logit: torch.Tensor, obj_logit: torch.Tensor
                ) -> torch.Tensor:
     return torch.sigmoid(cls_logit) * torch.sigmoid(obj_logit)
+
+
+# the IoU denominator floor shared by pairwise_iou and aligned_iou: the
+# streamed SimOTA tail recomputes the matched IoU with aligned_iou, the
+# dense SimOTA reads it from the pairwise matrix, and the two must agree
+IOU_EPS = 1e-6
+
+
+def _area(b: torch.Tensor) -> torch.Tensor:
+    return (torch.clamp(b[..., 2] - b[..., 0], min=0.0)
+            * torch.clamp(b[..., 3] - b[..., 1], min=0.0))
+
+
+def aligned_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                eps: float = IOU_EPS) -> torch.Tensor:
+    """Element-wise IoU of aligned (..., 4) xyxy boxes (mmcv
+    bbox_overlaps with is_aligned=True; no +1 offset)."""
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / torch.clamp(_area(boxes1) + _area(boxes2) - inter,
+                               min=eps)
+
+
+def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                 eps: float = IOU_EPS) -> torch.Tensor:
+    """IoU matrix (..., N, M) between xyxy boxes (..., N, 4) and
+    (..., M, 4), with aligned_iou's clip and eps conventions."""
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = _area(boxes1)[..., :, None] + _area(boxes2)[..., None, :] - inter
+    return inter / torch.clamp(union, min=eps)
