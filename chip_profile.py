@@ -10,7 +10,8 @@ For each program (serve b16 and b128 at 320x320, detect b1 at 320x320 and
 640x640; yunet_n, r04 EMA weights, bf16, fused, device NMS; and one
 training step of yunet_n at 640x640 b16 with the shipped config: bf16
 trunk, streamed SimOTA kernel, from the same weights, on a seeded
-synthetic face batch) it runs 5 warm-up calls, then 20 calls under
+synthetic face batch; and the same step with train.fused_kernels, every
+ConvDPUnit through the fused forward and backward kernels) it runs 5 warm-up calls, then 20 calls under
 torch.profiler, then 20 calls without it. It prints the wall time per call (profiled and unprofiled), the sum of
 device kernel time per call, the busy share (device kernel time over the
 profiled wall) and the top device kernels, and writes the same to
@@ -81,7 +82,8 @@ def main() -> int:
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     from yunet_tpu_torch.apis import init_detector
-    from yunet_tpu_torch.config import yunet_n
+    import dataclasses
+    from yunet_tpu_torch.config import validate_config, yunet_n
     from yunet_tpu_torch.train import init_train_state, make_train_step
     from yunet_tpu_torch.utils.jax_params import (load_flat_npz,
                                                   state_dict_from_jax)
@@ -99,15 +101,18 @@ def main() -> int:
     progs = {name: (lambda f=fn, x=x, k=k: f(x, k))
              for name, (fn, x, k) in progs.items()}
     cfg = yunet_n()
-    ts, opt = init_train_state(
-        cfg, steps_per_epoch=1000, total_batch=cfg.data.samples_per_device,
-        device=cs.DEV, state_dict=state_dict_from_jax(
-            *load_flat_npz(cs.FIXTURE, cfg.model)))
-    step = make_train_step(cfg, ts.model, opt, img_size=cfg.data.img_size)
+    sd = state_dict_from_jax(*load_flat_npz(cs.FIXTURE, cfg.model))
     tb = cs._to_device(cs.train_batch(np.random.RandomState(6),
                                       cfg.data.samples_per_device,
                                       cfg.data.img_size))
-    progs["train_b16_640"] = lambda: step(ts, tb)
+    fused = validate_config(dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, fused_kernels=True)), force_experimental=True)
+    for name, c in (("train_b16_640", cfg), ("train_fused_b16_640", fused)):
+        ts, opt = init_train_state(
+            c, steps_per_epoch=1000, total_batch=c.data.samples_per_device,
+            device=cs.DEV, state_dict=sd)
+        step = make_train_step(c, ts.model, opt, img_size=c.data.img_size)
+        progs[name] = lambda st=step, t=ts: st(t, tb)
     out = {"device": smi, "calls": CALLS}
     for name, fn in progs.items():
         r = profile_program(fn)

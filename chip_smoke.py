@@ -11,8 +11,11 @@ at the shapes its path gives it, drives the serving path (yunet_n at full
 width, trained r04 EMA weights from tests/fixtures/r04_ema.npz) and the
 training path (10 steps of yunet_n at 640^2 b16, bf16, from the same
 weights, on seeded synthetic face batches) through the user entry points,
+the same training path with train.fused_kernels (every ConvDPUnit through
+the fused forward kernel and its hand-written backward) and the
+channels-major ConvDP bench (yunet_tpu_torch.tools.bench_convdp_cm),
 shows through the launch counters that each path ran its kernels, and
-times kernels, their plain versions, library yardsticks and both paths
+times kernels, their plain versions, library yardsticks and the paths
 with CUDA events. Any failed check raises, and the script exits
 non-zero. There is no CPU path: without a CUDA device it exits non-zero
 before printing any result.
@@ -202,9 +205,11 @@ def phase_build():
     """Build every native source at once, one compiler process each."""
     from concurrent.futures import ThreadPoolExecutor
     from yunet_tpu_torch import native
-    from yunet_tpu_torch.ops import convdp, nms, simota
+    from yunet_tpu_torch.ops import (convdp, convdp_cm, convdp_train, nms,
+                                     simota)
     libs = {"convdp.cu": convdp.LIB, "nms.cu": nms.LIB,
-            "simota.cu": simota.LIB, "host_nms.cpp": native.LIB}
+            "simota.cu": simota.LIB, "convdp_bwd.cu": convdp_train.LIB,
+            "convdp_cm.cu": convdp_cm.LIB, "host_nms.cpp": native.LIB}
 
     def build(lib):
         t0 = time.perf_counter()
@@ -221,21 +226,24 @@ def phase_build():
                 log(f"        {line.strip()}")
 
 
-def reset_launch_counts():
+def _counted():
     from yunet_tpu_torch.ops.convdp import fused_conv_dp
+    from yunet_tpu_torch.ops.convdp_cm import fused_conv_dp_cm
+    from yunet_tpu_torch.ops.convdp_train import fused_pw_dw_bwd
     from yunet_tpu_torch.ops.nms import greedy_nms_keep
     from yunet_tpu_torch.ops.simota import streamed_simota
-    for fn in (fused_conv_dp, greedy_nms_keep, streamed_simota):
+    return {"fused_conv_dp": fused_conv_dp, "greedy_nms": greedy_nms_keep,
+            "simota_streamed": streamed_simota,
+            "convdp_bwd": fused_pw_dw_bwd, "convdp_cm": fused_conv_dp_cm}
+
+
+def reset_launch_counts():
+    for fn in _counted().values():
         fn.launches = 0
 
 
 def launch_counts():
-    from yunet_tpu_torch.ops.convdp import fused_conv_dp
-    from yunet_tpu_torch.ops.nms import greedy_nms_keep
-    from yunet_tpu_torch.ops.simota import streamed_simota
-    return {"fused_conv_dp": fused_conv_dp.launches,
-            "greedy_nms": greedy_nms_keep.launches,
-            "simota_streamed": streamed_simota.launches}
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def bound_ms(nbytes, ops, peak):
@@ -794,6 +802,308 @@ def phase_train_times(sd, batch):
     return out
 
 
+GRADS = ("dx", "dw1", "db1", "dwd", "dbd")
+# fused ConvDP backward, kernel against its plain version, as shares of
+# each gradient's largest magnitude: f32 sums over up to 409,600
+# positions in another order (the kernel's per-block sums and fixed-order
+# reduction against torch's reductions and f32 matmuls; in bf16 the
+# recomputed y1, rounded to bf16 after sums in another order, may round
+# the other way). Measured on an H100 at most 4.4e-6. dx in bf16, rounded
+# once by both, may differ by one bf16 ulp more: where its sum cancels,
+# the f32 noise of the sum order is many ulps of the small result
+BWD_TOL = 1e-4
+
+
+def phase_convdp_bwd(folded, cfg, bsz=16, hw=640):
+    """The fused ConvDP backward kernel against its plain version at each
+    of the 29 ConvDPUnit shapes of a 640^2 b16 train step (the r04 folded
+    weights of each unit, seeded x and dz), in f32 and bf16, within
+    BWD_TOL. Times the bf16 units, each alone, summed over the 29: the
+    kernel, its plain version, the library yardstick (autograd backward
+    through library_conv2d 1x1 + depthwise, bf16, channels-last) and the
+    bound."""
+    import torch
+    from yunet_tpu_torch.models.layers import library_conv2d
+    from yunet_tpu_torch.ops.convdp_train import (fused_pw_dw_bwd,
+                                                  fused_pw_dw_bwd_plain)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    units = convdp_unit_shapes(folded, cfg, hw, hw)
+    if len(units) != 29:
+        raise AssertionError(f"{len(units)} ConvDPUnits, not 29")
+    worst = {"f32": 0.0, "bf16": 0.0, "f32_abs": 0.0}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    t_bytes = t_ops = 0.0
+    for name, h, w, u in units:
+        cin, cout = u.w1.shape
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.rand((bsz, h, w, cin), generator=gen, device=DEV)
+                 * 3).to(dt)
+            dz = torch.randn((bsz, h, w, cout), generator=gen,
+                             device=DEV).to(dt)
+            got = fused_pw_dw_bwd(x, u.w1, u.b1, u.wd, dz)
+            want = fused_pw_dw_bwd_plain(x, u.w1, u.b1, u.wd, dz)
+            torch.cuda.synchronize()
+            shares = {}
+            for g_name, g, wt in zip(GRADS, got, want):
+                if g.shape != wt.shape or g.dtype != wt.dtype:
+                    raise AssertionError(f"convdp_bwd {name}: {g_name} "
+                                         f"{g.shape}/{g.dtype} vs plain "
+                                         f"{wt.shape}/{wt.dtype}")
+                d = (g.float() - wt.float()).abs()
+                shares[g_name] = float(d.max() / wt.float().abs().max()
+                                       .clamp_min(1e-30))
+                if dt == torch.float32:
+                    worst["f32_abs"] = max(worst["f32_abs"], float(d.max()))
+            if dt == torch.float32:
+                bad = {k: v for k, v in shares.items() if v > BWD_TOL}
+                worst["f32"] = max(worst["f32"], *shares.values())
+            else:
+                # dx: what is left over one bf16 ulp, as a share
+                a, b = got[0].float(), want[0].float()
+                shares["dx"] = float(((a - b).abs() - _ulp_bf16(
+                    torch.maximum(a.abs(), b.abs()))).clamp_min(0).max()
+                    / b.abs().max().clamp_min(1e-30))
+                worst["bf16"] = max(worst["bf16"], *shares.values())
+                bad = {k: v for k, v in shares.items() if v > BWD_TOL}
+            if bad:
+                raise AssertionError(f"convdp_bwd kernel != plain at {name} "
+                                     f"{dt}: {bad} (tolerances {BWD_TOL})")
+        log(f"[convdp_bwd] {name} b{bsz} {h}x{w} {cin}->{cout}: bf16 shares "
+            + ", ".join(f"{k} {v:.2e}" for k, v in shares.items()))
+
+        # times at bf16 (the shipped dtype): x, dz from the check above
+        ms = cuda_ms(lambda: fused_pw_dw_bwd(x, u.w1, u.b1, u.wd, dz),
+                     warmup=2, iters=5, windows=3)
+        pms = cuda_ms(lambda: fused_pw_dw_bwd_plain(x, u.w1, u.b1, u.wd,
+                                                    dz),
+                      warmup=2, iters=5, windows=3)
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        lw = [t.detach().clone().requires_grad_() for t in (
+            u.w1.t().reshape(cout, cin, 1, 1), u.b1,
+            u.wd.t().reshape(cout, 1, 3, 3), u.bd)]
+        y = library_conv2d(library_conv2d(xl, lw[0], lw[1]), lw[2], lw[3],
+                           padding=1, groups=cout)
+        dzl = dz.permute(0, 3, 1, 2)
+        lms = cuda_ms(lambda: torch.autograd.grad(y, [xl] + lw, dzl,
+                                                  retain_graph=True),
+                      warmup=2, iters=5, windows=3)
+        # x and dz read, dx written (bf16), the weights read and the
+        # gradients written (f32); three Cin x Cout products and two 9-tap
+        # passes a position, at the bf16 tensor-core peak
+        pos = bsz * h * w
+        nbytes = pos * (2 * cin + cout) * 2 + (cin * cout + 11 * cout) * 8
+        ops = 2 * pos * (3 * cin * cout + 18 * cout + 2 * cout)
+        bnd = bound_ms(nbytes, ops, BF16_FLOPS)[0]
+        t_bytes += nbytes / HBM_BPS * 1e3
+        t_ops += ops / BF16_FLOPS * 1e3
+        for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                     ("bound_ms", bnd)):
+            tot[k] += v
+        log(f"[convdp_bwd] time {name} bf16: kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, library {lms:.4f} ms, bound {bnd:.6f} ms")
+        del x, dz, got, want, xl, y, dzl
+    tot["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"[convdp_bwd] worst: f32 share {worst['f32']:.2e} (abs "
+        f"{worst['f32_abs']:.3e}); bf16 share {worst['bf16']:.2e} (dx: "
+        f"beyond one bf16 ulp); tolerance {BWD_TOL}")
+    log(f"[convdp_bwd] 640^2 b{bsz} bf16, all 29 units: kernel "
+        f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
+        f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.6f} ms "
+        f"({tot['bound_by']})")
+    return worst, tot
+
+
+def phase_train_fused(sd, batches):
+    """The training path with train.fused_kernels (reached through
+    validate_config(force_experimental=True)), yunet_n at full width,
+    bf16, r04 weights, 10 steps at b16 640^2 with the launch counters from
+    zero: 29 forward and 29 backward ConvDP launches and 2 SimOTA launches
+    a step; finite losses; 5 steps on one batch at the base lr lower the
+    loss; one f32 fused step's metrics against the unfused f32 step's
+    (rtol 1e-4: the same function, the fused kernels' sums against
+    cuDNN's; the same positives). Then ms per step, shipped (unfused) and
+    fused, in the order shipped, fused, fused, shipped."""
+    import dataclasses
+    import torch
+    from yunet_tpu_torch.config import validate_config, yunet_n
+    from yunet_tpu_torch.models.layers import ConvDPUnit
+    from yunet_tpu_torch.train import init_train_state, make_train_step
+
+    def fused_cfg(**train):
+        cfg = yunet_n()
+        return validate_config(dataclasses.replace(
+            cfg, train=dataclasses.replace(
+                cfg.train, **{"fused_kernels": True, **train})),
+            force_experimental=True)
+
+    def build(cfg):
+        ts, opt = init_train_state(cfg, steps_per_epoch=1000,
+                                   total_batch=bsz, device=DEV,
+                                   state_dict=sd)
+        return ts, make_train_step(cfg, ts.model, opt, img_size=hw)
+
+    cfg = fused_cfg()
+    bsz, hw = cfg.data.samples_per_device, cfg.data.img_size
+    ts, step = build(cfg)
+    # the trunk stays channels-last: count the units whose NHWC view of
+    # their input is not contiguous (a layout copy on the way in)
+    copies = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: copies.append(
+        not a[0].permute(0, 2, 3, 1).is_contiguous()))
+        for m in ts.model.modules() if isinstance(m, ConvDPUnit)]
+    reset_launch_counts()
+    metrics = [step(ts, batches[i % 3])[1] for i in range(10)]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for h in hooks:
+        h.remove()
+    log(f"[train_fused] launches on the fused training path: {launches}; "
+        f"unit inputs needing a layout copy: {sum(copies)} of {len(copies)}")
+    if sum(copies):
+        raise AssertionError("the fused trunk left channels-last")
+    want = {"fused_conv_dp": 290, "convdp_bwd": 290, "simota_streamed": 20}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"fused training launches {launches}, want "
+                             f"{want} (29 units x 10 steps; 2 x 10)")
+    for i, m in enumerate(metrics):
+        r = {k: float(v) for k, v in m.items()}
+        log(f"[train_fused] step {i}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in r.items()))
+        if not all(np.isfinite(list(r.values()))) or r["num_pos"] <= 0:
+            raise AssertionError(f"fused step {i}: non-finite loss or no "
+                                 "positives")
+
+    fresh, fstep = build(fused_cfg(warmup_iters=0))
+    rep = [float(fstep(fresh, batches[0])[1]["loss"]) for _ in range(5)]
+    log(f"[train_fused] 5 steps on one batch at lr {cfg.train.lr}: {rep}")
+    if not rep[-1] < rep[0]:
+        raise AssertionError("repeated fused steps on one batch did not "
+                             "lower the loss")
+    del fresh, fstep
+
+    torch.backends.cudnn.deterministic = True
+    m32 = {}
+    for fused in (True, False):
+        c32 = fused_cfg(bf16=False, fused_kernels=fused)
+        t32, s32 = build(c32)
+        m32[fused] = {k: float(v) for k, v in s32(t32, batches[1])[1].items()}
+        del t32, s32
+    torch.backends.cudnn.deterministic = False
+    log(f"[train_fused] f32 step: fused {m32[True]}, unfused {m32[False]}")
+    if m32[True]["num_pos"] != m32[False]["num_pos"]:
+        raise AssertionError("f32 fused and unfused steps chose different "
+                             "positives")
+    for k, v in m32[False].items():
+        if not np.isclose(m32[True][k], v, rtol=1e-4, atol=0.0):
+            raise AssertionError(f"f32 fused {k} {m32[True][k]} != unfused "
+                                 f"{v} (rtol 1e-4)")
+
+    steps = {}
+    for name, c in (("shipped", yunet_n()), ("fused", cfg)):
+        t, s = build(c)
+        steps[name] = (lambda st=s, tt=t: st(tt, batches[0]))
+    out = {}
+    for which in ("shipped", "fused", "fused", "shipped"):
+        out.setdefault(which, []).append(
+            cuda_ms(steps[which], warmup=2, iters=3))
+    for which, v in out.items():
+        log(f"[time] train step b16 640^2 bf16, {which}: {v[0]:.4f} / "
+            f"{v[1]:.4f} ms ({bsz / (min(v) / 1e3):.1f} img/s at the best)")
+    return launches, out
+
+
+def phase_convdp_cm():
+    """The channels-major ConvDP kernel at the bench shape (64 -> 64,
+    160^2, N = 128; seeded on the card) against its plain version and
+    against the NHWC kernel on the same data transposed, in f32 (rtol/atol
+    1e-5: sums in another order) and bf16. In bf16 both differences are
+    the y1 rounding: y1 is rounded to bf16 (the plain version too, after
+    another sum order, so it may round the other way; the NHWC kernel keeps
+    it f32), which moves an output by at most one bf16 ulp of its
+    channel's largest |y1| through the nine taps, plus one ulp of the
+    output. Times the bf16 kernel, its plain version and the library pair
+    at that shape, then runs the bench twin with the launch counters from
+    zero."""
+    import torch
+    import torch.nn.functional as F
+    from yunet_tpu_torch.ops.convdp import fused_conv_dp
+    from yunet_tpu_torch.ops.convdp_cm import (fused_conv_dp_cm,
+                                               fused_conv_dp_cm_plain)
+    from yunet_tpu_torch.tools import bench_convdp_cm as bench
+    n, h, w, cin, cout = bench.N, bench.H, bench.W, bench.CIN, bench.COUT
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    x32 = torch.randn((n, h, w, cin), generator=gen, device=DEV)
+    w1, b1, wd, bd = (torch.randn(s, generator=gen, device=DEV) * 0.3
+                      for s in ((cin, cout), (cout,), (9, cout), (cout,)))
+    max_err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        xn = x32.to(dt)
+        xc = xn.permute(1, 3, 2, 0).reshape(h, cin, w * n).contiguous()
+        for relu in (False, True):
+            got = fused_conv_dp_cm(xc, w1, b1, wd, bd, w=w, n=n, relu=relu)
+            plain = fused_conv_dp_cm_plain(xc, w1, b1, wd, bd, w=w, n=n,
+                                           relu=relu)
+            k4 = fused_conv_dp(xn, w1, b1, wd, bd, relu=relu).permute(
+                1, 3, 2, 0).reshape(h, cout, w * n)
+            torch.cuda.synchronize()
+            g = got.float()
+            for what, ref in (("plain", plain.float()), ("nhwc", k4.float())):
+                d = (g - ref).abs()
+                if dt == torch.float32:
+                    if what == "plain":
+                        max_err = max(max_err, float(d.max()))
+                    ok = bool((d <= 1e-5 + 1e-5 * ref.abs()).all())
+                else:
+                    y1 = (xn.float().reshape(-1, cin) @ w1.to(dt).float()
+                          + b1).abs().amax(0)
+                    tol = (_ulp_bf16(y1) * wd.abs().sum(0))[None, :, None] \
+                        + _ulp_bf16(torch.maximum(g.abs(), ref.abs()))
+                    ok = bool((d <= tol).all())
+                log(f"[convdp_cm] {str(dt)[6:]} relu={relu} kernel vs "
+                    f"{what}: max abs diff {float(d.max()):.3e}")
+                if not ok:
+                    raise AssertionError(f"convdp_cm kernel != {what} "
+                                         f"({dt}, relu={relu})")
+            del got, plain, k4, g
+    xn = x32.to(torch.bfloat16)
+    xc = xn.permute(1, 3, 2, 0).reshape(h, cin, w * n).contiguous()
+    del x32
+    ms = cuda_ms(lambda: fused_conv_dp_cm(xc, w1, b1, wd, bd, w=w, n=n),
+                 warmup=2, iters=5, windows=3)
+    pms = cuda_ms(lambda: fused_conv_dp_cm_plain(xc, w1, b1, wd, bd, w=w,
+                                                 n=n),
+                  warmup=1, iters=2, windows=3)
+    lw = (w1.t().reshape(cout, cin, 1, 1).to(torch.bfloat16),
+          b1.to(torch.bfloat16),
+          wd.t().reshape(cout, 1, 3, 3).to(torch.bfloat16),
+          bd.to(torch.bfloat16))
+    xl = xn.permute(0, 3, 1, 2)
+    lms = cuda_ms(lambda: F.conv2d(F.conv2d(xl, lw[0], lw[1]), lw[2], lw[3],
+                                   padding=1, groups=cout),
+                  warmup=2, iters=5, windows=3)
+    nbytes = h * w * n * (cin + cout) * 2 + (cin * cout + 11 * cout) * 4
+    ops = 2 * h * w * n * cout * (cin + 9 + 1)
+    bnd, by = bound_ms(nbytes, ops, BF16_FLOPS)
+    log(f"[convdp_cm] time {cin}->{cout} {h}x{w} N={n} bf16: kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, library pair {lms:.4f} ms, bound "
+        f"{bnd:.6f} ms ({by})")
+    del xn, xc, xl
+    torch.cuda.empty_cache()
+
+    reset_launch_counts()
+    res = bench.run()
+    torch.cuda.synchronize()
+    launches = launch_counts()["convdp_cm"]
+    for name, r in res.items():
+        log(f"[bench_convdp_cm] {name}: {r['ms_per_unit']:.4f} ms/unit, "
+            f"{r['gb_s']:.1f} GB/s (windows {[round(v, 4) for v in r['windows']]})")
+    if launches != (1 + bench.WINDOWS) * bench.ITERS:
+        raise AssertionError(f"the bench launched the channels-major kernel "
+                             f"{launches} times")
+    return max_err, launches, {"ms": ms, "plain_ms": pms, "library_ms": lms,
+                               "bound_ms": bnd, "bound_by": by}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -818,10 +1128,14 @@ def main() -> int:
     sd = state_dict_from_jax(*load_flat_npz(FIXTURE, cfg))
     model = YuNet(cfg, device=DEV)
     model.load_state_dict(sd)
-    conv_err, conv_t = phase_convdp(fold_inference_params(model, cfg), cfg)
+    folded = fold_inference_params(model, cfg)
+    conv_err, conv_t = phase_convdp(folded, cfg)
     simota_err, simota_t = phase_simota(model, cfg)
     _, fdet, serve_launches = phase_slice()
     train_launches, batches = phase_train(sd)
+    bwd_err, bwd_t = phase_convdp_bwd(folded, cfg)
+    fused_launches, _ = phase_train_fused(sd, batches)
+    cm_err, cm_launches, cm_t = phase_convdp_cm()
     phase_times(fdet)
     phase_train_times(sd, batches[0])
 
@@ -837,6 +1151,9 @@ def main() -> int:
          "source": "yunet_tpu_torch/csrc/convdp.cu",
          "replaces": "yunet_tpu/ops/convdp_pallas.py:29",
          "launches": serve_launches["fused_conv_dp"],
+         # also the forward of fused_pw_dw on the fused training path
+         "also_runs_on": "training path with train.fused_kernels",
+         "launches_fused_training": fused_launches["fused_conv_dp"],
          "max_abs_err": conv_err["f32"], **conv_t},
         {"name": "simota_streamed", "route": "cuda",
          "source": "yunet_tpu_torch/csrc/simota.cu",
@@ -846,6 +1163,15 @@ def main() -> int:
          "max_abs_err": simota_err,
          # no single PyTorch call computes the SimOTA reductions
          "library_ms": None, **simota_t},
+        {"name": "convdp_bwd", "route": "cuda",
+         "source": "yunet_tpu_torch/csrc/convdp_bwd.cu",
+         "replaces": "yunet_tpu/ops/convdp_pallas_impl.py:61",
+         "launches": fused_launches["convdp_bwd"],
+         "max_abs_err": bwd_err["f32_abs"], **bwd_t},
+        {"name": "convdp_cm", "route": "cuda",
+         "source": "yunet_tpu_torch/csrc/convdp_cm.cu",
+         "replaces": "yunet_tpu/ops/convdp_cm_pallas.py:57",
+         "launches": cm_launches, "max_abs_err": cm_err, **cm_t},
     ]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

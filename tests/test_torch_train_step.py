@@ -296,6 +296,87 @@ def test_bf16_step_matches_jax_within_band(r04):
                                    rtol=BF16_LOSS_BAND, err_msg=k)
 
 
+def test_fused_step_matches_jax(r04):
+    """The fused-kernel path (train.fused_kernels: every ConvDPUnit through
+    the fused forward and its hand-written backward, here their plain
+    versions) against JAX's fused step (Pallas in interpret mode), f32,
+    64^2 b2: losses at rtol 1e-5, gradients and the params after one step
+    under the tolerances of the unfused tests above."""
+    jcfg, tcfg = _cfgs(fused_kernels=True)
+    batch = _np_batch(2, 0)
+    priors = _priors()
+    jmodel = JaxYuNet(jcfg.model)
+    (_, (_, jm)), jg = jax.jit(jax.value_and_grad(
+        lambda p: jax_loss_fn(jmodel, jcfg, p, r04[1], batch,
+                              jnp.asarray(priors)), has_aux=True))(r04[0])
+    ts, opt = _port_state(tcfg, r04, 2)
+    model = ts.model
+    total, m, _ = loss_fn(model, tcfg, {k: torch.from_numpy(v) for k, v in
+                                        batch.items()},
+                          torch.from_numpy(priors))
+    for k in METRICS:
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5,
+                                   err_msg=k)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(total, list(model.parameters()),
+                                allow_unused=True)
+    _leafwise(_as_jax_tree(model, [
+        (n, torch.zeros_like(p) if g is None else g)
+        for n, p, g in zip(names, model.parameters(), grads)]), jg,
+        rtol=1e-3, atol=0.0, scale_atol=1e-4)
+
+    jts, tx = jax_init(jcfg, steps_per_epoch=10, total_batch=2,
+                       params=r04[0], state=r04[1])
+    jts, jm = jax_make_step(jcfg, jmodel, tx, img_size=IMG)(jts, batch)
+    ts, opt = _port_state(tcfg, r04, 2)
+    ts, m = make_train_step(tcfg, ts.model, opt, img_size=IMG)(ts, batch)
+    for k in METRICS:
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5,
+                                   err_msg=k)
+    p, s = jax_from_state_dict(ts.model.state_dict(), tcfg.model)
+    _leafwise(p, jts.params, rtol=5e-4, atol=5e-6)
+    _leafwise(s, jts.state, rtol=5e-4, atol=5e-6)
+
+
+def test_validate_config_matches_jax():
+    """validate_config raises on the same configs as JAX's, with the same
+    message, and passes the rest (the cases of
+    tests/test_aux.py:test_validate_config_rejects_parked_flags)."""
+    from yunet_tpu.config import validate_config as jax_validate
+    from yunet_tpu_torch.config import validate_config
+
+    def both(section, **kw):
+        j, t = jax_yunet_n(), yunet_n()
+        return tuple(dataclasses.replace(c, **{section: dataclasses.replace(
+            getattr(c, section), **kw)}) for c in (j, t))
+
+    cases = [(both("train"), None, None),
+             (both("train", fused_kernels=True), "fused_kernels", True),
+             (both("model", remat_stages=(0, 1)), "remat_stages", True),
+             (both("data", bank_sharded=True), "bank_sharded", False),
+             (both("train", bn_group=5), "bn_group", False),
+             (both("train", bn_group=-1), "bn_group", False),
+             (both("data", device_aug=True, bank_canvas=600),
+              "bank_canvas", False),
+             (both("train", bn_group=16), None, None)]
+    for (jc, tc), match, forcible in cases:
+        if match is None:
+            assert validate_config(tc) is tc
+            jax_validate(jc)
+            continue
+        with pytest.raises(ValueError, match=match) as want:
+            jax_validate(jc)
+        with pytest.raises(ValueError, match=match) as got:
+            validate_config(tc)
+        assert str(got.value) == str(want.value)
+        if forcible:
+            assert validate_config(tc, force_experimental=True) is tc
+            jax_validate(jc, force_experimental=True)
+        else:
+            with pytest.raises(ValueError, match=match):
+                validate_config(tc, force_experimental=True)
+
+
 def test_seeded_init_trains_and_unported_options_raise():
     _, tcfg = _cfgs()
     gen = lambda: torch.Generator().manual_seed(3)  # noqa: E731

@@ -13,7 +13,8 @@ Layout:
                    (train mode: JAX's BatchNorm algebra, GhostBN);
                    fused.py folds BN and runs the fused-unit forward
   ops/             priors, boxes, losses, SimOTA assignment; fused
-                   ConvDPUnit, greedy NMS and streamed SimOTA (each a
+                   ConvDPUnit (forward, trainable backward, channels-major
+                   variant), greedy NMS and streamed SimOTA (each a
                    hand-written CUDA kernel beside its plain PyTorch
                    version); the nvcc build helper
   train/           targets, LR schedule, EMA, SGD and the train step
@@ -24,6 +25,7 @@ Layout:
   native.py        exact host greedy NMS (csrc/host_nms.cpp, a copy of
                    the JAX package's C++ source)
   apis.py          init_detector / inference_detector
+  tools/           bench_convdp_cm (channels-major ConvDP micro-bench)
 """
 
 __version__ = "0.1.0"

@@ -174,3 +174,56 @@ def _retarget_data_root(cfg: Config, root: str) -> Config:
         train_img_prefix=sub(d.train_img_prefix), val_ann=sub(d.val_ann),
         val_img_prefix=sub(d.val_img_prefix), gt_dir=sub(d.gt_dir))
     return dataclasses.replace(cfg, data=new_d)
+
+
+def validate_config(cfg: Config, *, force_experimental: bool = False
+                    ) -> Config:
+    """Reject measured-loser / inconsistent flag combinations — a copy of
+    ``yunet_tpu/config.py:validate_config``, with its messages.
+
+    Raises ValueError on a parked combination (unless
+    ``force_experimental``) and on outright inconsistencies (always). The
+    parked reasons are the JAX package's TPU measurements; this is also
+    where the port's fused-kernel training path (``train.fused_kernels``)
+    is reached from: ``make_train_step`` does not call it, a CLI does.
+    """
+    # --- hard inconsistencies: never allowed -----------------------------
+    if cfg.data.bank_sharded and not cfg.data.device_aug:
+        raise ValueError(
+            "data.bank_sharded=true requires data.device_aug=true "
+            "(the bank only exists on the device_aug path)")
+    if cfg.train.bn_group < 0:
+        raise ValueError("train.bn_group must be >= 0")
+    if (cfg.train.bn_group > 0
+            and cfg.data.samples_per_device % cfg.train.bn_group):
+        raise ValueError(
+            f"train.bn_group={cfg.train.bn_group} must divide the local "
+            f"batch data.samples_per_device={cfg.data.samples_per_device} "
+            "(GhostBN reshapes the batch into fixed groups)")
+    if cfg.data.device_aug and cfg.data.bank_canvas < cfg.data.bank_size:
+        raise ValueError(
+            f"data.bank_canvas={cfg.data.bank_canvas} must be >= "
+            f"data.bank_size={cfg.data.bank_size}")
+
+    # --- measured-and-parked combinations: need --force-experimental -----
+    parked = []
+    if cfg.train.fused_kernels:
+        parked.append(
+            "train.fused_kernels=true: the Pallas fused pw->dw training "
+            "kernels are MEASURED SLOWER than the composed-conv XLA path "
+            "at b128/640^2 (ops/convdp_train_pallas.py root-cause notes); "
+            "the shipped winner is model.composed_dp=true")
+    if cfg.model.remat_stages:
+        parked.append(
+            f"model.remat_stages={cfg.model.remat_stages}: measured "
+            "~4-11% slower at b128/640^2 (the step is HBM-bound; XLA "
+            "materializes the recomputed tensors anyway, config.py "
+            "remat_stages note). It is a memory lever for batches that "
+            "do not otherwise fit — force it only for that")
+    if parked and not force_experimental:
+        raise ValueError(
+            "config uses measured-and-parked experimental flags:\n  - "
+            + "\n  - ".join(parked)
+            + "\npass --force-experimental (CLI) or "
+            "validate_config(..., force_experimental=True) to run anyway")
+    return cfg

@@ -33,11 +33,11 @@ class YuNetBackbone(nn.Module):
         for i in range(self.num_stages):
             getattr(self, f"model{i}").reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, bn_group: int = 0
-                ) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, bn_group: int = 0,
+                fused: bool = False) -> List[torch.Tensor]:
         outs: List[torch.Tensor] = []
         for i in range(self.num_stages):
-            x = getattr(self, f"model{i}")(x, bn_group)
+            x = getattr(self, f"model{i}")(x, bn_group, fused)
             if i in self.out_idx:
                 outs.append(x)
             if i in self.downsample_idx:

@@ -5,7 +5,8 @@ Per level: an optional shared ConvDPUnit stack, then four prediction
 ConvDPUnits without BN — cls (num_classes ch), bbox (4), obj (1) and
 kps (2*NK). The four branches stay separate modules under the reference
 names; the JAX package concatenates them into one unit for TPU tiling,
-which is the same math.
+which is the same math (with ``fused``: four fused units a level where
+JAX runs one).
 """
 
 from __future__ import annotations
@@ -56,16 +57,17 @@ class YuNetHead(nn.Module):
                 getattr(self, f"multi_level_{b}")[lvl].reset_parameters(
                     generator)
 
-    def forward(self, feats: List[torch.Tensor], bn_group: int = 0
-                ) -> Dict[str, List[torch.Tensor]]:
+    def forward(self, feats: List[torch.Tensor], bn_group: int = 0,
+                fused: bool = False) -> Dict[str, List[torch.Tensor]]:
         """Per-level NCHW maps for each branch."""
         out: Dict[str, List[torch.Tensor]] = {b: [] for b in self.branches}
         for lvl, feat in enumerate(feats):
             if self.multi_level_share_convs is not None:
                 for m in self.multi_level_share_convs[lvl]:
-                    feat = m(feat, bn_group)
+                    feat = m(feat, bn_group, fused)
             for b in self.branches:
-                out[b].append(getattr(self, f"multi_level_{b}")[lvl](feat))
+                out[b].append(getattr(self, f"multi_level_{b}")[lvl](
+                    feat, fused=fused))
         return out
 
 

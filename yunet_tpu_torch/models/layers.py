@@ -27,6 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.convdp_train import fused_pw_dw
+
 BN_EPS = 1e-5  # torch.nn.BatchNorm2d default, used by every BN in the model
 BN_MOMENTUM = 0.1  # running-stat update: new = (1-m)*old + m*batch
 
@@ -166,13 +168,33 @@ class ConvDPUnit(nn.Module):
         if self.bn is not None:
             init_bn(self.bn)
 
-    def forward(self, x: torch.Tensor, bn_group: int = 0) -> torch.Tensor:
-        """bn_group: the GhostBN group size in training (0: the batch)."""
+    def forward(self, x: torch.Tensor, bn_group: int = 0,
+                fused: bool = False) -> torch.Tensor:
+        """bn_group: the GhostBN group size in training (0: the batch).
+        fused: pw + dw through the fused kernel pair (JAX
+        ``conv_dp_unit(fused=True)``, layers.py:260-271)."""
+        bd = (self.conv2.bias if self.bn is None
+              else bn_covered_bias(self.conv2))
+        if fused:
+            x = self._fused_pw_dw(x, bd)
+        else:
+            x = conv2d(conv2d(x, self.conv1), self.conv2, bd)
         if self.bn is None:
-            return conv2d(conv2d(x, self.conv1), self.conv2)
-        x = conv2d(conv2d(x, self.conv1), self.conv2,
-                   bn_covered_bias(self.conv2))
+            return x
         return F.relu(batch_norm(x, self.bn, bn_group))
+
+    def _fused_pw_dw(self, x: torch.Tensor, bd: torch.Tensor
+                     ) -> torch.Tensor:
+        """``ops/convdp_train.py:fused_pw_dw`` on the NHWC view of x, with
+        the f32 weights (JAX passes its raw params), returned as an NCHW
+        view of the NHWC result. A channels-last x (the fused training
+        path keeps the trunk so) needs no copy on the way in or out."""
+        cout, cin = self.conv1.weight.shape[:2]
+        w1 = self.conv1.weight.reshape(cout, cin).t().contiguous()
+        wd = self.conv2.weight.reshape(cout, 9).t().contiguous()
+        z = fused_pw_dw(x.permute(0, 2, 3, 1).contiguous(), w1,
+                        self.conv1.bias, wd, bd)
+        return z.permute(0, 3, 1, 2)
 
 
 class ConvHead(nn.Module):
@@ -191,10 +213,11 @@ class ConvHead(nn.Module):
         init_bn(self.bn1)
         self.conv2.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, bn_group: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_group: int = 0,
+                fused: bool = False) -> torch.Tensor:
         x = conv2d(x, self.conv1, bn_covered_bias(self.conv1))
         x = F.relu(batch_norm(x, self.bn1, bn_group))
-        return self.conv2(x, bn_group)
+        return self.conv2(x, bn_group, fused)
 
 
 class Conv4LayerBlock(nn.Module):
@@ -209,5 +232,6 @@ class Conv4LayerBlock(nn.Module):
         self.conv1.reset_parameters(generator)
         self.conv2.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, bn_group: int = 0) -> torch.Tensor:
-        return self.conv2(self.conv1(x, bn_group), bn_group)
+    def forward(self, x: torch.Tensor, bn_group: int = 0,
+                fused: bool = False) -> torch.Tensor:
+        return self.conv2(self.conv1(x, bn_group, fused), bn_group, fused)

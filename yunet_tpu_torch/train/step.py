@@ -126,8 +126,12 @@ def loss_fn(model: YuNet, cfg: Config, batch: Dict[str, torch.Tensor],
     mode its BN running statistics update in place."""
     images = batch["image"]
     images = images.to(torch.bfloat16 if cfg.train.bf16 else torch.float32)
-    flat = model.forward_flat(images.permute(0, 3, 1, 2).contiguous(),
-                              cfg.train.bn_group)
+    # NCHW for the library trunk; the fused trunk (train.fused_kernels)
+    # takes the NHWC images as a channels-last view and stays channels-last
+    x = images.permute(0, 3, 1, 2)
+    fused = cfg.train.fused_kernels
+    flat = model.forward_flat(x if fused else x.contiguous(),
+                              cfg.train.bn_group, fused)
     cls_l = flat["cls"].float()                       # (B, P, C)
     obj_l = flat["obj"][..., 0].float()               # (B, P)
     bbox_p = flat["bbox"].float()                     # (B, P, 4)
