@@ -14,7 +14,8 @@ synthetic face batch; and the same step with train.fused_kernels, every
 ConvDPUnit through the fused forward and backward kernels) it runs 5 warm-up calls, then 20 calls under
 torch.profiler, then 20 calls without it. It prints the wall time per call (profiled and unprofiled), the sum of
 device kernel time per call, the busy share (device kernel time over the
-profiled wall) and the top device kernels, and writes the same to
+profiled wall), the top device kernels and the port's own kernels
+summed over their instantiations, and writes the same to
 chiprun_out/chip_profile.json. The profiler slows the host, so the busy
 share it gives is a lower bound for the unprofiled program.
 """
@@ -49,6 +50,21 @@ def device_rows(prof, calls):
     return sorted(rows, key=lambda r: -r[1])
 
 
+def port_kernels(rows):
+    """{kernel: (device ms per call, launches per call)} of the port's own
+    kernels (csrc/, each in an anonymous namespace), summed over their
+    template instantiations."""
+    out = {}
+    for key, ms, n in rows:
+        if "at::native" in key or "(anonymous namespace)::" not in key:
+            continue
+        name = key.split("(anonymous namespace)::")[1].split("<")[0]
+        name = name.split("(")[0]
+        ms0, n0 = out.get(name, (0.0, 0.0))
+        out[name] = (ms0 + ms, n0 + n)
+    return out
+
+
 def profile_program(fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -73,7 +89,7 @@ def profile_program(fn):
     busy = sum(r[1] for r in rows)
     return {"wall_ms_profiled": wall, "wall_ms_unprofiled": bare,
             "device_kernel_ms": busy, "busy_share": busy / wall,
-            "top": rows[:TOP]}
+            "top": rows[:TOP], "port_kernels": port_kernels(rows)}
 
 
 def main() -> int:
@@ -123,6 +139,9 @@ def main() -> int:
                f"{r['busy_share']:.1%}")
         for key, ms, n in r["top"]:
             cs.log(f"   {ms:8.4f} ms x{n:6.1f}  {key[:90]}")
+        cs.log("   the port's kernels, all instantiations: " + ", ".join(
+            f"{k} {ms:.4f} ms x{n:.1f}"
+            for k, (ms, n) in r["port_kernels"].items()))
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump(out, f, indent=1)

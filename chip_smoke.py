@@ -201,15 +201,18 @@ def plain_packed(det, x, top_k):
 
 # -- phases ----------------------------------------------------------------
 
-def phase_build():
-    """Build every native source at once, one compiler process each."""
+def phase_build(libs=None):
+    """Build every native source (or those of ``libs``, name -> NativeLib)
+    at once, one compiler process each."""
     from concurrent.futures import ThreadPoolExecutor
     from yunet_tpu_torch import native
     from yunet_tpu_torch.ops import (convdp, convdp_cm, convdp_train, nms,
                                      simota)
-    libs = {"convdp.cu": convdp.LIB, "nms.cu": nms.LIB,
-            "simota.cu": simota.LIB, "convdp_bwd.cu": convdp_train.LIB,
-            "convdp_cm.cu": convdp_cm.LIB, "host_nms.cpp": native.LIB}
+    libs = libs or {"convdp.cu": convdp.LIB, "nms.cu": nms.LIB,
+                    "simota.cu": simota.LIB,
+                    "convdp_bwd.cu": convdp_train.LIB,
+                    "convdp_cm.cu": convdp_cm.LIB,
+                    "host_nms.cpp": native.LIB}
 
     def build(lib):
         t0 = time.perf_counter()
@@ -240,10 +243,14 @@ def _counted():
 def reset_launch_counts():
     for fn in _counted().values():
         fn.launches = 0
+    _counted()["convdp_bwd"].launches_mma = 0
 
 
 def launch_counts():
-    return {name: fn.launches for name, fn in _counted().items()}
+    counts = {name: fn.launches for name, fn in _counted().items()}
+    # the backward's bf16 (tensor-core) route alone
+    counts["convdp_bwd_mma"] = _counted()["convdp_bwd"].launches_mma
+    return counts
 
 
 def bound_ms(nbytes, ops, peak):
@@ -814,14 +821,69 @@ GRADS = ("dx", "dw1", "db1", "dwd", "dbd")
 BWD_TOL = 1e-4
 
 
+# the five heaviest units of a 640^2 b16 step; shapes that are not whole
+# 8 x 16 tiles, (N, H, W, Cin, Cout): two at yunet_n's widths, one at
+# yunet_s's 32 channels and one whose channels take the scalar loads
+HEAVY_UNITS = ("stem_dp", "m1a", "m1b", "m2a", "m2b")
+RAGGED_BWD = ((2, 21, 19, 16, 64), (2, 21, 19, 64, 10), (1, 17, 33, 32, 32),
+              (2, 9, 7, 3, 1))
+
+
+def _check_convdp_bwd(label, x, w1, b1, wd, dz, worst):
+    """One backward kernel call against its plain version, within BWD_TOL.
+    In bf16 also: the call took the tensor-core route (its counter), and a
+    second call gives the same gradients bit for bit. Returns the shares."""
+    import torch
+    from yunet_tpu_torch.ops.convdp_train import (fused_pw_dw_bwd,
+                                                  fused_pw_dw_bwd_plain)
+    bf16 = x.dtype == torch.bfloat16
+    before = fused_pw_dw_bwd.launches_mma
+    got = fused_pw_dw_bwd(x, w1, b1, wd, dz)
+    if fused_pw_dw_bwd.launches_mma != before + int(bf16):
+        raise AssertionError(f"convdp_bwd {label} {x.dtype}: not on the "
+                             f"{'tensor-core' if bf16 else 'f32'} route")
+    want = fused_pw_dw_bwd_plain(x, w1, b1, wd, dz)
+    torch.cuda.synchronize()
+    shares = {}
+    for g_name, g, wt in zip(GRADS, got, want):
+        if g.shape != wt.shape or g.dtype != wt.dtype:
+            raise AssertionError(f"convdp_bwd {label}: {g_name} "
+                                 f"{g.shape}/{g.dtype} vs plain "
+                                 f"{wt.shape}/{wt.dtype}")
+        d = (g.float() - wt.float()).abs()
+        shares[g_name] = float(d.max() / wt.float().abs().max()
+                               .clamp_min(1e-30))
+        if not bf16:
+            worst["f32_abs"] = max(worst["f32_abs"], float(d.max()))
+    if bf16:
+        # dx: what is left over one bf16 ulp, as a share
+        a, b = got[0].float(), want[0].float()
+        shares["dx"] = float(((a - b).abs() - _ulp_bf16(
+            torch.maximum(a.abs(), b.abs()))).clamp_min(0).max()
+            / b.abs().max().clamp_min(1e-30))
+        again = fused_pw_dw_bwd(x, w1, b1, wd, dz)
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise AssertionError(f"convdp_bwd {label}: two bf16 calls gave "
+                                 "different gradients")
+    key = "bf16" if bf16 else "f32"
+    worst[key] = max(worst[key], *shares.values())
+    bad = {k: v for k, v in shares.items() if v > BWD_TOL}
+    if bad:
+        raise AssertionError(f"convdp_bwd kernel != plain at {label} {x.dtype}:"
+                             f" {bad} (tolerances {BWD_TOL})")
+    return shares
+
+
 def phase_convdp_bwd(folded, cfg, bsz=16, hw=640):
     """The fused ConvDP backward kernel against its plain version at each
     of the 29 ConvDPUnit shapes of a 640^2 b16 train step (the r04 folded
-    weights of each unit, seeded x and dz), in f32 and bf16, within
-    BWD_TOL. Times the bf16 units, each alone, summed over the 29: the
-    kernel, its plain version, the library yardstick (autograd backward
-    through library_conv2d 1x1 + depthwise, bf16, channels-last) and the
-    bound."""
+    weights of each unit, seeded x and dz) and at RAGGED_BWD (seeded
+    weights), in f32 and bf16, within BWD_TOL; every bf16 call on the
+    tensor-core route and bit-identical when repeated. Times the bf16
+    units, each alone, summed over the 29: the kernel, its plain version,
+    the library yardstick (autograd backward through library_conv2d 1x1 +
+    depthwise, bf16, channels-last) and the bound; and lists the
+    HEAVY_UNITS."""
     import torch
     from yunet_tpu_torch.models.layers import library_conv2d
     from yunet_tpu_torch.ops.convdp_train import (fused_pw_dw_bwd,
@@ -832,42 +894,19 @@ def phase_convdp_bwd(folded, cfg, bsz=16, hw=640):
         raise AssertionError(f"{len(units)} ConvDPUnits, not 29")
     worst = {"f32": 0.0, "bf16": 0.0, "f32_abs": 0.0}
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    heavy = {}
     t_bytes = t_ops = 0.0
+
+    def inputs(n, h, w, cin, cout, dt):
+        x = (torch.rand((n, h, w, cin), generator=gen, device=DEV) * 3).to(dt)
+        return x, torch.randn((n, h, w, cout), generator=gen,
+                              device=DEV).to(dt)
+
     for name, h, w, u in units:
         cin, cout = u.w1.shape
         for dt in (torch.float32, torch.bfloat16):
-            x = (torch.rand((bsz, h, w, cin), generator=gen, device=DEV)
-                 * 3).to(dt)
-            dz = torch.randn((bsz, h, w, cout), generator=gen,
-                             device=DEV).to(dt)
-            got = fused_pw_dw_bwd(x, u.w1, u.b1, u.wd, dz)
-            want = fused_pw_dw_bwd_plain(x, u.w1, u.b1, u.wd, dz)
-            torch.cuda.synchronize()
-            shares = {}
-            for g_name, g, wt in zip(GRADS, got, want):
-                if g.shape != wt.shape or g.dtype != wt.dtype:
-                    raise AssertionError(f"convdp_bwd {name}: {g_name} "
-                                         f"{g.shape}/{g.dtype} vs plain "
-                                         f"{wt.shape}/{wt.dtype}")
-                d = (g.float() - wt.float()).abs()
-                shares[g_name] = float(d.max() / wt.float().abs().max()
-                                       .clamp_min(1e-30))
-                if dt == torch.float32:
-                    worst["f32_abs"] = max(worst["f32_abs"], float(d.max()))
-            if dt == torch.float32:
-                bad = {k: v for k, v in shares.items() if v > BWD_TOL}
-                worst["f32"] = max(worst["f32"], *shares.values())
-            else:
-                # dx: what is left over one bf16 ulp, as a share
-                a, b = got[0].float(), want[0].float()
-                shares["dx"] = float(((a - b).abs() - _ulp_bf16(
-                    torch.maximum(a.abs(), b.abs()))).clamp_min(0).max()
-                    / b.abs().max().clamp_min(1e-30))
-                worst["bf16"] = max(worst["bf16"], *shares.values())
-                bad = {k: v for k, v in shares.items() if v > BWD_TOL}
-            if bad:
-                raise AssertionError(f"convdp_bwd kernel != plain at {name} "
-                                     f"{dt}: {bad} (tolerances {BWD_TOL})")
+            x, dz = inputs(bsz, h, w, cin, cout, dt)
+            shares = _check_convdp_bwd(name, x, u.w1, u.b1, u.wd, dz, worst)
         log(f"[convdp_bwd] {name} b{bsz} {h}x{w} {cin}->{cout}: bf16 shares "
             + ", ".join(f"{k} {v:.2e}" for k, v in shares.items()))
 
@@ -899,13 +938,32 @@ def phase_convdp_bwd(folded, cfg, bsz=16, hw=640):
         for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
                      ("bound_ms", bnd)):
             tot[k] += v
+        if name in HEAVY_UNITS:
+            heavy[name] = (h, w, cin, cout, ms, lms, bnd)
         log(f"[convdp_bwd] time {name} bf16: kernel {ms:.4f} ms, plain "
             f"{pms:.4f} ms, library {lms:.4f} ms, bound {bnd:.6f} ms")
-        del x, dz, got, want, xl, y, dzl
+        del x, dz, xl, y, dzl
+    # after the units, which draw their inputs first from the generator
+    for n, h, w, cin, cout in RAGGED_BWD:
+        w1, b1, wd = (torch.randn(s, generator=gen, device=DEV) * 0.2
+                      for s in ((cin, cout), (cout,), (9, cout)))
+        for dt in (torch.float32, torch.bfloat16):
+            label = f"ragged {n}x{h}x{w} {cin}->{cout}"
+            x, dz = inputs(n, h, w, cin, cout, dt)
+            shares = _check_convdp_bwd(label, x, w1, b1, wd, dz, worst)
+            log(f"[convdp_bwd] {label} {str(dt)[6:]}: shares "
+                + ", ".join(f"{k} {v:.2e}" for k, v in shares.items()))
     tot["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     log(f"[convdp_bwd] worst: f32 share {worst['f32']:.2e} (abs "
         f"{worst['f32_abs']:.3e}); bf16 share {worst['bf16']:.2e} (dx: "
-        f"beyond one bf16 ulp); tolerance {BWD_TOL}")
+        f"beyond one bf16 ulp); tolerance {BWD_TOL}; bf16 calls on the "
+        "tensor-core route, repeated calls bit-identical")
+    log(f"[convdp_bwd] the heaviest units, b{bsz} bf16 (kernel / library / "
+        "bound ms, kernel/library):")
+    for name in HEAVY_UNITS:
+        h, w, cin, cout, ms, lms, bnd = heavy[name]
+        log(f"[convdp_bwd]   {name:8s} {h}x{w} {cin}->{cout}: {ms:.4f} / "
+            f"{lms:.4f} / {bnd:.6f} ({ms / lms:.2f}x)")
     log(f"[convdp_bwd] 640^2 b{bsz} bf16, all 29 units: kernel "
         f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library "
         f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.6f} ms "
@@ -913,12 +971,27 @@ def phase_convdp_bwd(folded, cfg, bsz=16, hw=640):
     return worst, tot
 
 
+def convdp_bwd_only():
+    """phase_convdp_bwd alone, for quick work on the backward kernel:
+    python3 -c "import chip_smoke as s; s.convdp_bwd_only()" from the
+    repository root. Builds only convdp_bwd.cu."""
+    import torch
+    from yunet_tpu_torch.ops import convdp_train
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    log(f"[device] {torch.cuda.get_device_name(0)} | {nvidia_smi_line()}")
+    cfg, _, _, folded = load_model()
+    phase_build({"convdp_bwd.cu": convdp_train.LIB})
+    phase_convdp_bwd(folded, cfg)
+
+
 def phase_train_fused(sd, batches):
     """The training path with train.fused_kernels (reached through
     validate_config(force_experimental=True)), yunet_n at full width,
     bf16, r04 weights, 10 steps at b16 640^2 with the launch counters from
-    zero: 29 forward and 29 backward ConvDP launches and 2 SimOTA launches
-    a step; finite losses; 5 steps on one batch at the base lr lower the
+    zero: 29 forward and 29 backward ConvDP launches (the backward all on
+    its bf16 tensor-core route) and 2 SimOTA launches a step; finite
+    losses; 5 steps on one batch at the base lr lower the
     loss; one f32 fused step's metrics against the unfused f32 step's
     (rtol 1e-4: the same function, the fused kernels' sums against
     cuDNN's; the same positives). Then ms per step, shipped (unfused) and
@@ -961,10 +1034,12 @@ def phase_train_fused(sd, batches):
         f"unit inputs needing a layout copy: {sum(copies)} of {len(copies)}")
     if sum(copies):
         raise AssertionError("the fused trunk left channels-last")
-    want = {"fused_conv_dp": 290, "convdp_bwd": 290, "simota_streamed": 20}
+    want = {"fused_conv_dp": 290, "convdp_bwd": 290, "convdp_bwd_mma": 290,
+            "simota_streamed": 20}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"fused training launches {launches}, want "
-                             f"{want} (29 units x 10 steps; 2 x 10)")
+                             f"{want} (29 units x 10 steps, every backward "
+                             "on the bf16 route; 2 x 10)")
     for i, m in enumerate(metrics):
         r = {k: float(v) for k, v in m.items()}
         log(f"[train_fused] step {i}: " + ", ".join(
@@ -1104,13 +1179,11 @@ def phase_convdp_cm():
                                "bound_ms": bnd, "bound_by": by}
 
 
-def main() -> int:
+def load_model():
+    """yunet_n on the card with the r04 EMA weights: (model config, state
+    dict, model, BN-folded units). Also turns TF32 off for the f32
+    references."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's kernels need one",
-              file=sys.stderr)
-        return 1
-    # the package first: without it the script fails before printing
     from yunet_tpu_torch.config import yunet_n
     from yunet_tpu_torch.models.detector import YuNet
     from yunet_tpu_torch.models.fused import fold_inference_params
@@ -1118,17 +1191,28 @@ def main() -> int:
                                                   state_dict_from_jax)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = yunet_n().model
+    sd = state_dict_from_jax(*load_flat_npz(FIXTURE, cfg))
+    model = YuNet(cfg, device=DEV)
+    model.load_state_dict(sd)
+    return cfg, sd, model, fold_inference_params(model, cfg)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need one",
+              file=sys.stderr)
+        return 1
+    # the package first: without it the script fails before printing
+    import yunet_tpu_torch  # noqa: F401
     smi = nvidia_smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     phase_build()
     nms_err, nms_t = phase_nms()
-    cfg = yunet_n().model
-    sd = state_dict_from_jax(*load_flat_npz(FIXTURE, cfg))
-    model = YuNet(cfg, device=DEV)
-    model.load_state_dict(sd)
-    folded = fold_inference_params(model, cfg)
+    cfg, sd, model, folded = load_model()
     conv_err, conv_t = phase_convdp(folded, cfg)
     simota_err, simota_t = phase_simota(model, cfg)
     _, fdet, serve_launches = phase_slice()
@@ -1167,6 +1251,8 @@ def main() -> int:
          "source": "yunet_tpu_torch/csrc/convdp_bwd.cu",
          "replaces": "yunet_tpu/ops/convdp_pallas_impl.py:61",
          "launches": fused_launches["convdp_bwd"],
+         # of those, the launches of the bf16 (tensor-core) route
+         "launches_mma": fused_launches["convdp_bwd_mma"],
          "max_abs_err": bwd_err["f32_abs"], **bwd_t},
         {"name": "convdp_cm", "route": "cuda",
          "source": "yunet_tpu_torch/csrc/convdp_cm.cu",

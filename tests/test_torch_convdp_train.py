@@ -13,6 +13,12 @@ Tolerances, as shares of each gradient's largest magnitude:
     JAX does, misses JAX's dwd by 1.6e-3 to 3.2e-3 of its scale on these
     three shapes (checked once by hand): the bf16 tolerance is three
     orders of magnitude tighter than that gap.
+
+The bf16 CUDA kernel's split-product arithmetic (csrc/convdp_bwd.cu) is
+emulated here in f32 torch ops and held to the plain version under the
+tolerances chip_smoke.py applies to the kernel on the card. The emulation
+does not model the kernel's re-summing of y1 near a bf16 rounding
+boundary; its y1 is rounded from CPU f32 sums.
 """
 
 import jax
@@ -179,3 +185,85 @@ def test_fused_pw_dw_no_silent_fallback():
     with pytest.raises(ValueError, match="shapes disagree"):
         fused_pw_dw_bwd(torch.zeros(1, 4, 4, 4), w1, b1, wd,
                         torch.zeros(1, 4, 4, 4))
+
+
+# the tolerances chip_smoke.py holds the bf16 kernel to on the card
+BWD_TOL = 1e-4
+
+
+def _split(v):
+    """v = hi + lo + O(2^-16 v), hi and lo bf16 values (kept in f32)."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _mma(pairs):
+    """sum_i a_i @ b_i for bf16-valued f32 operands, as the tensor cores
+    take it: exact products, f32 sums, the k-steps of 16 one after another,
+    every pair of a step into one accumulator."""
+    out = 0.0
+    for k in range(0, pairs[0][0].shape[1], 16):
+        for a, b in pairs:
+            out = out + a[:, k:k + 16] @ b[k:k + 16]
+    return out
+
+
+def _emulated_mma_bwd(x, w1, b1, wd, dz):
+    """The bf16 route of csrc/convdp_bwd.cu in f32 torch ops: y1 from bf16
+    operands, rounded to bf16; dy1 and the 9-tap sums in f32; dx from the
+    hi/lo halves of dy1 and w1 (lo.hi + hi.lo + hi.hi); dw1 = x.lo +
+    x.hi."""
+    n, h, w, cin = x.shape
+    cout = w1.shape[-1]
+    xf, dzf = x.float().reshape(-1, cin), dz.float()
+    w1, wd = w1.reshape(cin, cout), wd.reshape(9, cout)
+    y1 = (_mma([(xf, w1.to(torch.bfloat16).float())]) + b1).to(
+        torch.bfloat16).float().reshape(n, h, w, cout)
+    pad = (0, 0, 1, 1, 1, 1)
+    y1p, dzp = torch.nn.functional.pad(y1, pad), torch.nn.functional.pad(
+        dzf, pad)
+    dy1 = torch.zeros_like(dzf)
+    dwd = []
+    for t in range(9):
+        ty, tx = divmod(t, 3)
+        dy1 = dy1 + wd[t] * dzp[:, 2 - ty:2 - ty + h, 2 - tx:2 - tx + w]
+        dwd.append((y1p[:, ty:ty + h, tx:tx + w] * dzf).sum((0, 1, 2)))
+    dy1 = dy1.reshape(-1, cout)
+    hi, lo = _split(dy1)
+    wh, wl = _split(w1)
+    dx = _mma([(lo, wh.t()), (hi, wl.t()), (hi, wh.t())])
+    dw1 = _mma([(xf.t(), lo), (xf.t(), hi)])
+    return (dx.reshape(n, h, w, cin).to(torch.bfloat16), dw1, dy1.sum(0),
+            torch.stack(dwd), dzf.sum((0, 1, 2)))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 32, 64, 64), (2, 16, 32, 16, 64),
+                                   (2, 21, 19, 16, 64), (2, 21, 19, 64, 10)])
+def test_split_product_numerics_match_plain(shape):
+    """The bf16 kernel's arithmetic, emulated on the CPU, against
+    fused_pw_dw_bwd_plain within chip_smoke.py's tolerances: each gradient
+    within BWD_TOL of its largest magnitude, dx within one bf16 ulp plus
+    BWD_TOL of its largest magnitude (measured here: at most 4.0e-6 beyond
+    the ulp, and 3.5e-6 for the others).
+
+    Why dx and dw1 take dy1 (and w1) as hi/lo bf16 pairs: a single bf16
+    pass, dy1 and w1 each rounded to bf16 once, misses the plain dx by
+    2.0e-3 to 2.9e-3 of its largest magnitude beyond the ulp on these
+    shapes, and dw1 by 1.6e-3 to 1.9e-3: over ten times the tolerance."""
+    n, h, w, ci, co = shape
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.uniform(0, 3, (n, h, w, ci)).astype(
+        np.float32)).to(torch.bfloat16)
+    dz = torch.from_numpy(rng.randn(n, h, w, co).astype(np.float32)).to(
+        torch.bfloat16)
+    w1, b1, wd, _ = (torch.from_numpy(p) for p in _unit_params(ci, co, 9))
+    got = _emulated_mma_bwd(x, w1, b1, wd, dz)
+    want = fused_pw_dw_bwd_plain(x, w1, b1, wd, dz)
+    for name, g, wt in zip(NAMES, got, want):
+        assert g.shape == wt.shape and g.dtype == wt.dtype, name
+        a, b = g.float(), wt.float()
+        d = (a - b).abs()
+        if name == "dx":
+            d = (d - torch.from_numpy(_bf16_ulp(np.maximum(
+                a.abs().numpy(), b.abs().numpy())))).clamp_min(0)
+        assert float(d.max() / b.abs().max()) <= BWD_TOL, name

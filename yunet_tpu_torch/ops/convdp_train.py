@@ -18,9 +18,10 @@ rounded once to x's dtype, and the parameter gradients are f32 sums over
 every position. The JAX ``row_block`` only tiles the TPU grid; there is
 no such argument here.
 
-A CUDA tensor goes to the hand-written kernel (``csrc/convdp_bwd.cu``); a
-CPU tensor goes to ``fused_pw_dw_bwd_plain``, the same function in f32
-PyTorch ops.
+A CUDA tensor goes to the hand-written kernel (``csrc/convdp_bwd.cu``),
+by its dtype: bf16 (the shipped dtype) to the tensor-core route, at most
+64 channels each side, f32 to the scalar route. A CPU tensor goes to
+``fused_pw_dw_bwd_plain``, the same function in f32 PyTorch ops.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ LIB = NativeLib(
     SOURCE, ["nvcc"] + NVCC_FLAGS,
     {**cuda_signatures(yunet_convdp_backward=[_P] * 8 + [_I] * 6 + [_P]),
      "yunet_convdp_bwd_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+     "yunet_convdp_bwd_mma_max_channels": (_I, []),
      "yunet_convdp_bwd_blocks": (_I, [_I, _I, _I]),
      "yunet_convdp_bwd_acc_len": (_I, [_I, _I])})
 
@@ -111,14 +113,22 @@ def fused_pw_dw_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             raise TypeError(f"fused_pw_dw_bwd: {name} must be f32")
     n, h, w, _ = x.shape
     lib = LIB.get()
-    if lib.yunet_convdp_bwd_smem_bytes(cin, cout) > MAX_SMEM:
+    mma = x.dtype == torch.bfloat16
+    if mma:
+        most = lib.yunet_convdp_bwd_mma_max_channels()
+        if max(cin, cout) > most:
+            raise ValueError(f"fused_pw_dw_bwd: {cin}->{cout} channels; the "
+                             f"bf16 kernel takes at most {most} a side")
+    elif lib.yunet_convdp_bwd_smem_bytes(cin, cout) > MAX_SMEM:
         raise ValueError(f"fused_pw_dw_bwd: {cin}->{cout} channels need more "
                          "shared memory than a block has")
     if n * -(-h // 8) * -(-w // 16) >= 2 ** 31:
         raise ValueError("fused_pw_dw_bwd: more tiles than an int counts")
     dx = torch.empty_like(x)
     length = lib.yunet_convdp_bwd_acc_len(cin, cout)
-    grads = torch.zeros(length, dtype=torch.float32, device=x.device)
+    # the reduction writes every element; an empty input sums to zero
+    grads = (torch.empty if x.numel() else torch.zeros)(
+        length, dtype=torch.float32, device=x.device)
     if x.numel():
         blocks = lib.yunet_convdp_bwd_blocks(n, h, w)
         partial = torch.empty((blocks, length), dtype=torch.float32,
@@ -128,16 +138,18 @@ def fused_pw_dw_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                 x.data_ptr(), dz.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                 wd.data_ptr(), dx.data_ptr(), partial.data_ptr(),
                 grads.data_ptr(), n, h, w, cin, cout,
-                int(x.dtype == torch.bfloat16),
-                torch.cuda.current_stream().cuda_stream)
+                int(mma), torch.cuda.current_stream().cuda_stream)
         check_cuda_status(lib, code, "fused_pw_dw_bwd")
         fused_pw_dw_bwd.launches += 1
+        fused_pw_dw_bwd.launches_mma += int(mma)
     dw1, db1, dwd, dbd = torch.split(
         grads, [cin * cout, cout, 9 * cout, cout])
     return dx, dw1.view(cin, cout), db1, dwd.view(9, cout), dbd
 
 
+# every launch, and those of the bf16 (tensor-core) route alone
 fused_pw_dw_bwd.launches = 0
+fused_pw_dw_bwd.launches_mma = 0
 
 
 class _FusedPwDw(torch.autograd.Function):
