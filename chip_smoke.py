@@ -240,16 +240,21 @@ def _counted():
             "convdp_bwd": fused_pw_dw_bwd, "convdp_cm": fused_conv_dp_cm}
 
 
+# the kernels with a bf16 (tensor-core) route, counted apart as well
+MMA_ROUTES = ("fused_conv_dp", "convdp_bwd")
+
+
 def reset_launch_counts():
     for fn in _counted().values():
         fn.launches = 0
-    _counted()["convdp_bwd"].launches_mma = 0
+    for name in MMA_ROUTES:
+        _counted()[name].launches_mma = 0
 
 
 def launch_counts():
     counts = {name: fn.launches for name, fn in _counted().items()}
-    # the backward's bf16 (tensor-core) route alone
-    counts["convdp_bwd_mma"] = _counted()["convdp_bwd"].launches_mma
+    for name in MMA_ROUTES:
+        counts[f"{name}_mma"] = _counted()[name].launches_mma
     return counts
 
 
@@ -323,21 +328,82 @@ def phase_nms():
     return max_err, times["b16_k750_n300"]
 
 
-def _ulp_bf16(t):
-    import torch
-    _, e = torch.frexp(t.abs())
-    return torch.ldexp(torch.ones_like(t), e - 8)
-
-
-def phase_convdp(folded, cfg):
-    """The ConvDP kernel against its plain version at every unit shape of
-    yunet_n's b1 fused forward at 320^2 and 640^2, plus ragged 37x45 and
-    Cin=3: f32 within 1e-5, bf16 within one bf16 ulp of the output. Times
-    the 640^2 units in bf16: the kernel, its plain version, and the library
-    pair (F.conv2d 1x1 + depthwise F.conv2d, bf16, on the same memory as
-    an NCHW channels-last view), with the bound of each unit summed."""
+def _convdp_unit_times(x, w1, b1, wd, bd, relu, **timing):
+    """(kernel ms, plain ms, library pair ms, bytes, operations) of one bf16
+    ConvDPUnit call. The library pair is F.conv2d 1x1 then the depthwise
+    F.conv2d, bf16, on the same memory as an NCHW channels-last view. The
+    bytes: bf16 activations in and out, f32 weights; the operations: the
+    pointwise and depthwise multiply-adds (taken at the bf16 tensor-core
+    peak)."""
     import torch
     import torch.nn.functional as F
+    from yunet_tpu_torch.ops.convdp import fused_conv_dp, fused_conv_dp_plain
+    n, h, w, cin = x.shape
+    cout = w1.shape[-1]
+    ms = cuda_ms(lambda: fused_conv_dp(x, w1, b1, wd, bd, relu=relu),
+                 **timing)
+    pms = cuda_ms(lambda: fused_conv_dp_plain(x, w1, b1, wd, bd, relu=relu),
+                  **timing)
+    lw = (w1.reshape(cin, cout).t().reshape(cout, cin, 1, 1)
+          .to(torch.bfloat16), b1.to(torch.bfloat16),
+          wd.reshape(9, cout).t().reshape(cout, 1, 3, 3).to(torch.bfloat16),
+          bd.to(torch.bfloat16))
+    xl = x.permute(0, 3, 1, 2)
+
+    def library():
+        y = F.conv2d(F.conv2d(xl, lw[0], lw[1]), lw[2], lw[3], padding=1,
+                     groups=cout)
+        return F.relu(y) if relu else y
+    lms = cuda_ms(library, **timing)
+    return (ms, pms, lms, n * h * w * (cin + cout) * 2
+            + (cin * cout + 11 * cout) * 4, 2 * n * h * w * cout * (cin + 10))
+
+
+def _check_convdp_bf16(label, x, w1, b1, wd, bd, relu):
+    """One bf16 ConvDP kernel call against its plain version: bf16_excess
+    within BF16_EXCESS_LIMIT; on the tensor-core route (its counter rises
+    by one) where the channels allow; a second call bit-equal. Returns
+    (excess, elements more than one bf16 ulp off)."""
+    import torch
+    from yunet_tpu_torch.ops.convdp import (BF16_EXCESS_LIMIT, bf16_excess,
+                                            fused_conv_dp,
+                                            fused_conv_dp_plain, ulp_bf16)
+    before = fused_conv_dp.launches_mma
+    got = fused_conv_dp(x, w1, b1, wd, bd, relu=relu)
+    if fused_conv_dp.launches_mma != before + int(max(w1.shape) <= 64):
+        raise AssertionError(f"ConvDP {label} bf16: not on the tensor-core "
+                             "route")
+    again = fused_conv_dp(x, w1, b1, wd, bd, relu=relu)
+    want = fused_conv_dp_plain(x, w1, b1, wd, bd, relu=relu)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"ConvDP {label} bf16: two calls differ")
+    excess = bf16_excess(got, want, x, w1, b1, wd)
+    g, t = got.float(), want.float()
+    over = int(((g - t).abs() > ulp_bf16(torch.maximum(g.abs(), t.abs())))
+               .sum())
+    if not excess <= BF16_EXCESS_LIMIT:
+        raise AssertionError(f"ConvDP kernel != plain (bf16) at {label}: "
+                             f"excess {excess} units of 2^-24 S (limit "
+                             f"{BF16_EXCESS_LIMIT}), {over} elements over "
+                             "one ulp")
+    return excess, over
+
+
+def phase_convdp(folded, cfg, bsz=16):
+    """The ConvDP kernel against its plain version at every unit shape of
+    yunet_n's b1 fused forward at 320^2 and 640^2, plus ragged 37x45 and
+    Cin=3, and at the 29 units of the fused train step's forward (640^2
+    b16). f32 (the scalar route) within rtol/atol 1e-5. bf16 (the
+    tensor-core route) within one bf16 ulp of the output plus 2^-23 * S
+    (bf16_excess <= 2): its sums are f32 sums in another order than the
+    plain version's, which moves an output that cancels to near zero by
+    many of its own ulps, so one ulp alone held only the scalar kernel,
+    whose order happened to round as cuDNN's. Every bf16 call on the
+    tensor-core route, and a second call bit-equal. Times the 640^2 units
+    in bf16, at b1 and at b16: the kernel, its plain version and the
+    library pair, with the bound of each unit, summed."""
+    import torch
     from yunet_tpu_torch.ops.convdp import fused_conv_dp, fused_conv_dp_plain
     rng = np.random.RandomState(1)
     cases = []
@@ -353,9 +419,26 @@ def phase_convdp(folded, cfg):
             rng.randn(co).astype(np.float32) * 0.2)]
         cases += [(f"{h}x{w}:{ci}->{co}:relu{int(relu)}", n, h, w, *r, relu)
                   for relu in (True, False)]
-    max_err = {"f32": 0.0, "bf16_ulps": 0.0}
-    t_kernel = t_plain = t_lib = 0.0
-    t_bound, t_bytes, t_ops = 0.0, 0.0, 0.0
+    worst = {"f32": 0.0, "bf16_excess": 0.0}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+
+    def add(tot, ms, pms, lms, nbytes, ops):
+        for k, v in zip(keys, (ms, pms, lms,
+                               bound_ms(nbytes, ops, BF16_FLOPS)[0])):
+            tot[k] += v
+        tot["bytes_ms"] += nbytes / HBM_BPS * 1e3
+        tot["ops_ms"] += ops / BF16_FLOPS * 1e3
+
+    def summed(tot, what):
+        by = "bytes" if tot.pop("bytes_ms") >= tot.pop("ops_ms") else \
+            "operations"
+        log(f"[convdp] {what} bf16, all units: kernel {tot['ms']:.4f} ms, "
+            f"plain {tot['plain_ms']:.4f} ms, library pair "
+            f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.6f} ms "
+            f"({by})")
+        return {**tot, "bound_by": by}
+
+    b1_tot = dict.fromkeys(keys + ("bytes_ms", "ops_ms"), 0.0)
     seen = set()
     for name, n, h, w, w1, b1, wd, bd, relu in cases:
         x = torch.from_numpy(rng.uniform(0, 3, (n, h, w, w1.shape[0]))
@@ -368,59 +451,63 @@ def phase_convdp(folded, cfg):
             raise AssertionError(f"ConvDP kernel != plain (f32) at {name}: "
                                  f"max abs err {err} (rtol/atol 1e-5)")
         xb = x.to(torch.bfloat16)
-        gb = fused_conv_dp(xb, w1, b1, wd, bd, relu=relu).float()
-        wb = fused_conv_dp_plain(xb, w1, b1, wd, bd, relu=relu).float()
-        ulps = float(((gb - wb).abs() / _ulp_bf16(
-            torch.maximum(gb.abs(), wb.abs()))).max())
-        if ulps > 1.0:
-            raise AssertionError(f"ConvDP kernel != plain (bf16) at {name}: "
-                                 f"{ulps} ulp")
-        max_err["f32"] = max(max_err["f32"], err)
-        max_err["bf16_ulps"] = max(max_err["bf16_ulps"], ulps)
+        excess, over = _check_convdp_bf16(name, xb, w1, b1, wd, bd, relu)
+        worst["f32"] = max(worst["f32"], err)
+        worst["bf16_excess"] = max(worst["bf16_excess"], excess)
         if name.startswith("640:"):
-            # the main path's time: one 640^2 b1 forward's units, bf16
-            ms = cuda_ms(lambda: fused_conv_dp(xb, w1, b1, wd, bd,
-                                               relu=relu))
-            pms = cuda_ms(lambda: fused_conv_dp_plain(xb, w1, b1, wd, bd,
-                                                      relu=relu))
+            # the serving path's shapes: one 640^2 b1 forward's units
+            t = _convdp_unit_times(xb, w1, b1, wd, bd, relu)
+            add(b1_tot, *t)
             cin, cout = w1.shape[-2], w1.shape[-1]
-            lib_w = (w1.reshape(cin, cout).t().reshape(cout, cin, 1, 1)
-                     .to(torch.bfloat16), b1.to(torch.bfloat16),
-                     wd.reshape(9, cout).t().reshape(cout, 1, 3, 3)
-                     .to(torch.bfloat16), bd.to(torch.bfloat16))
-
-            def library(xl=xb.permute(0, 3, 1, 2), wts=lib_w, co=cout,
-                        act=relu):
-                y = F.conv2d(F.conv2d(xl, wts[0], wts[1]), wts[2], wts[3],
-                             padding=1, groups=co)
-                return F.relu(y) if act else y
-            lms = cuda_ms(library)
-            t_kernel += ms
-            t_plain += pms
-            t_lib += lms
-            # bf16 activations in and out, f32 weights; the pointwise
-            # and depthwise multiply-adds at the bf16 tensor-core peak
-            ub = (h * w * (cin + cout) * 2 + (cin * cout + 11 * cout) * 4)
-            uo = 2 * h * w * cout * (cin + 9 + 1)
-            t_bound += bound_ms(ub, uo, BF16_FLOPS)[0]
-            t_bytes += ub / HBM_BPS * 1e3
-            t_ops += uo / BF16_FLOPS * 1e3
-            key = (h, w, cin, cout)
-            if key not in seen:
-                seen.add(key)
+            if (h, w, cin, cout) not in seen:
+                seen.add((h, w, cin, cout))
                 log(f"[convdp] time {name} {h}x{w} {cin}->{cout} bf16: "
-                    f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
-                    f"{lms:.4f} ms, bound {bound_ms(ub, uo, BF16_FLOPS)[0]:.6f}"
-                    " ms")
+                    f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, library "
+                    f"{t[2]:.4f} ms, bound "
+                    f"{bound_ms(t[3], t[4], BF16_FLOPS)[0]:.6f} ms")
         log(f"[convdp] {name} N={n} {h}x{w} {w1.shape[0]}->{w1.shape[1]}: "
-            f"f32 err {err:.2e}, bf16 {ulps:.2f} ulp")
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"[convdp] 640^2 b1 bf16, all units: kernel {t_kernel:.4f} ms, "
-        f"plain {t_plain:.4f} ms, library pair {t_lib:.4f} ms, bound "
-        f"{t_bound:.6f} ms ({by})")
-    return max_err, {"ms": t_kernel, "plain_ms": t_plain,
-                     "library_ms": t_lib, "bound_ms": t_bound,
-                     "bound_by": by}
+            f"f32 err {err:.2e}, bf16 excess {excess:.3f} of 2^-24 S, "
+            f"{over} elements over one ulp")
+    b1_tot = summed(b1_tot, "640^2 b1")
+
+    # the fused train step's forward: its 29 units at 640^2 b16, x drawn
+    # on the card
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    b16_tot = dict.fromkeys(keys + ("bytes_ms", "ops_ms"), 0.0)
+    for name, h, w, u in convdp_unit_shapes(folded, cfg, 640, 640):
+        cin, cout = u.w1.shape
+        x = (torch.rand((bsz, h, w, cin), generator=gen, device=DEV) * 3).to(
+            torch.bfloat16)
+        excess, over = _check_convdp_bf16(f"b{bsz} {name}", x, u.w1, u.b1,
+                                          u.wd, u.bd, u.relu)
+        worst["bf16_excess"] = max(worst["bf16_excess"], excess)
+        t = _convdp_unit_times(x, u.w1, u.b1, u.wd, u.bd, u.relu, warmup=2,
+                               iters=5, windows=3)
+        add(b16_tot, *t)
+        log(f"[convdp] b{bsz} {name} {h}x{w} {cin}->{cout}: kernel "
+            f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, library {t[2]:.4f} ms, "
+            f"bound {bound_ms(t[3], t[4], BF16_FLOPS)[0]:.6f} ms; bf16 "
+            f"excess {excess:.3f}, {over} elements over one ulp")
+        del x
+    b16_tot = summed(b16_tot, f"640^2 b{bsz}")
+    log(f"[convdp] worst: f32 abs err {worst['f32']:.3e} (rtol/atol 1e-5); "
+        f"bf16 excess {worst['bf16_excess']:.3f} units of 2^-24 S (limit 2)"
+        "; every bf16 call on the tensor-core route, repeats bit-equal")
+    return worst, {**b1_tot, f"b{bsz}_640": b16_tot}
+
+
+def convdp_only():
+    """phase_convdp alone, for quick work on the forward kernel:
+    python3 -c "import chip_smoke as s; s.convdp_only()" from the
+    repository root. Builds only convdp.cu."""
+    import torch
+    from yunet_tpu_torch.ops import convdp
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    log(f"[device] {torch.cuda.get_device_name(0)} | {nvidia_smi_line()}")
+    cfg, _, _, folded = load_model()
+    phase_build({"convdp.cu": convdp.LIB})
+    phase_convdp(folded, cfg)
 
 
 def _pair(ba, bb, *, atol, rtol, score_atol):
@@ -483,6 +570,10 @@ def phase_slice():
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  "main path")
+    # the fused bf16 detect: its 29 units, all on the tensor-core route
+    if launches["fused_conv_dp"] != 29 or launches["fused_conv_dp_mma"] != 29:
+        raise AssertionError(f"fused detect launches {launches}, want 29 "
+                             "ConvDP launches, all on the bf16 route")
     counts = [r["bboxes"].shape[0] for r in batch]
     log(f"[slice] detect_batch b16 320^2: detections per image {counts}, "
         f"saturated {det.last_devnms_saturated}")
@@ -528,7 +619,7 @@ def phase_slice():
     # check for the same count failed on an H100 for that reason (33 vs 34
     # detections, the odd one scoring under 0.1), so bf16 pairs only the
     # detections scoring 0.1 or more; f32 keeps the same-count check, and
-    # phase_convdp holds each unit to one bf16 ulp
+    # phase_convdp holds each unit to its plain version (bf16_excess)
     ref = det.detect(img640, use_device_nms=True)
     log(f"[slice] detect 640^2 b1 bf16: fused {single['bboxes'].shape[0]} "
         f"/ unfused {ref['bboxes'].shape[0]} detections")
@@ -834,6 +925,7 @@ def _check_convdp_bwd(label, x, w1, b1, wd, dz, worst):
     In bf16 also: the call took the tensor-core route (its counter), and a
     second call gives the same gradients bit for bit. Returns the shares."""
     import torch
+    from yunet_tpu_torch.ops.convdp import ulp_bf16
     from yunet_tpu_torch.ops.convdp_train import (fused_pw_dw_bwd,
                                                   fused_pw_dw_bwd_plain)
     bf16 = x.dtype == torch.bfloat16
@@ -858,7 +950,7 @@ def _check_convdp_bwd(label, x, w1, b1, wd, dz, worst):
     if bf16:
         # dx: what is left over one bf16 ulp, as a share
         a, b = got[0].float(), want[0].float()
-        shares["dx"] = float(((a - b).abs() - _ulp_bf16(
+        shares["dx"] = float(((a - b).abs() - ulp_bf16(
             torch.maximum(a.abs(), b.abs()))).clamp_min(0).max()
             / b.abs().max().clamp_min(1e-30))
         again = fused_pw_dw_bwd(x, w1, b1, wd, dz)
@@ -1034,12 +1126,12 @@ def phase_train_fused(sd, batches):
         f"unit inputs needing a layout copy: {sum(copies)} of {len(copies)}")
     if sum(copies):
         raise AssertionError("the fused trunk left channels-last")
-    want = {"fused_conv_dp": 290, "convdp_bwd": 290, "convdp_bwd_mma": 290,
-            "simota_streamed": 20}
+    want = {"fused_conv_dp": 290, "fused_conv_dp_mma": 290,
+            "convdp_bwd": 290, "convdp_bwd_mma": 290, "simota_streamed": 20}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"fused training launches {launches}, want "
-                             f"{want} (29 units x 10 steps, every backward "
-                             "on the bf16 route; 2 x 10)")
+                             f"{want} (29 units x 10 steps, every forward "
+                             "and backward on the bf16 route; 2 x 10)")
     for i, m in enumerate(metrics):
         r = {k: float(v) for k, v in m.items()}
         log(f"[train_fused] step {i}: " + ", ".join(
@@ -1101,7 +1193,7 @@ def phase_convdp_cm():
     zero."""
     import torch
     import torch.nn.functional as F
-    from yunet_tpu_torch.ops.convdp import fused_conv_dp
+    from yunet_tpu_torch.ops.convdp import fused_conv_dp, ulp_bf16
     from yunet_tpu_torch.ops.convdp_cm import (fused_conv_dp_cm,
                                                fused_conv_dp_cm_plain)
     from yunet_tpu_torch.tools import bench_convdp_cm as bench
@@ -1131,8 +1223,8 @@ def phase_convdp_cm():
                 else:
                     y1 = (xn.float().reshape(-1, cin) @ w1.to(dt).float()
                           + b1).abs().amax(0)
-                    tol = (_ulp_bf16(y1) * wd.abs().sum(0))[None, :, None] \
-                        + _ulp_bf16(torch.maximum(g.abs(), ref.abs()))
+                    tol = (ulp_bf16(y1) * wd.abs().sum(0))[None, :, None] \
+                        + ulp_bf16(torch.maximum(g.abs(), ref.abs()))
                     ok = bool((d <= tol).all())
                 log(f"[convdp_cm] {str(dt)[6:]} relu={relu} kernel vs "
                     f"{what}: max abs diff {float(d.max()):.3e}")
@@ -1235,10 +1327,14 @@ def main() -> int:
          "source": "yunet_tpu_torch/csrc/convdp.cu",
          "replaces": "yunet_tpu/ops/convdp_pallas.py:29",
          "launches": serve_launches["fused_conv_dp"],
+         # of those, the launches of the bf16 (tensor-core) route
+         "launches_mma": serve_launches["fused_conv_dp_mma"],
          # also the forward of fused_pw_dw on the fused training path
          "also_runs_on": "training path with train.fused_kernels",
          "launches_fused_training": fused_launches["fused_conv_dp"],
-         "max_abs_err": conv_err["f32"], **conv_t},
+         "launches_mma_fused_training": fused_launches["fused_conv_dp_mma"],
+         "max_abs_err": conv_err["f32"],
+         "bf16_excess": conv_err["bf16_excess"], **conv_t},
         {"name": "simota_streamed", "route": "cuda",
          "source": "yunet_tpu_torch/csrc/simota.cu",
          "replaces": "yunet_tpu/ops/simota_pallas.py:233",
