@@ -241,7 +241,7 @@ def _counted():
 
 
 # the kernels with a bf16 (tensor-core) route, counted apart as well
-MMA_ROUTES = ("fused_conv_dp", "convdp_bwd")
+MMA_ROUTES = ("fused_conv_dp", "convdp_bwd", "convdp_cm")
 
 
 def reset_launch_counts():
@@ -1179,64 +1179,113 @@ def phase_train_fused(sd, batches):
     return launches, out
 
 
-def phase_convdp_cm():
-    """The channels-major ConvDP kernel at the bench shape (64 -> 64,
-    160^2, N = 128; seeded on the card) against its plain version and
-    against the NHWC kernel on the same data transposed, in f32 (rtol/atol
-    1e-5: sums in another order) and bf16. In bf16 both differences are
-    the y1 rounding: y1 is rounded to bf16 (the plain version too, after
-    another sum order, so it may round the other way; the NHWC kernel keeps
-    it f32), which moves an output by at most one bf16 ulp of its
+# the channels-major unit's ragged shapes (H, W, Cin, Cout, N), as in
+# tests/test_torch_convdp_cm.py, and one 64 -> 64 whose W is no multiple
+# of the bf16 route's 8 columns and whose N is no multiple of 8
+CM_RAGGED = ((10, 6, 8, 16, 128), (9, 5, 3, 8, 128), (11, 7, 16, 24, 37),
+             (13, 21, 64, 64, 45))
+
+
+def _check_convdp_cm(label, x32, w1, b1, wd, bd):
+    """The channels-major kernel on x32 (N, H, W, Cin; f32 on the card)
+    laid out as (H, Cin, W*N), in f32 and bf16, with and without ReLU,
+    against its plain version and against the NHWC kernel on the same
+    data. f32 (the scalar route) within rtol/atol 1e-5: sums in another
+    order. bf16: y1 is rounded to bf16 (the plain version too, after
+    another sum order, so it may round the other way; the NHWC kernel
+    keeps it f32), which moves an output by at most one bf16 ulp of its
     channel's largest |y1| through the nine taps, plus one ulp of the
-    output. Times the bf16 kernel, its plain version and the library pair
-    at that shape, then runs the bench twin with the launch counters from
-    zero."""
+    output. Every bf16 call at 64 channels or fewer on the tensor-core
+    route, and a second call bit-equal. Returns (f32 max abs err against
+    the plain version, worst bf16 diff over its tolerance)."""
     import torch
-    import torch.nn.functional as F
     from yunet_tpu_torch.ops.convdp import fused_conv_dp, ulp_bf16
     from yunet_tpu_torch.ops.convdp_cm import (fused_conv_dp_cm,
                                                fused_conv_dp_cm_plain)
-    from yunet_tpu_torch.tools import bench_convdp_cm as bench
-    n, h, w, cin, cout = bench.N, bench.H, bench.W, bench.CIN, bench.COUT
-    gen = torch.Generator(device=DEV).manual_seed(7)
-    x32 = torch.randn((n, h, w, cin), generator=gen, device=DEV)
-    w1, b1, wd, bd = (torch.randn(s, generator=gen, device=DEV) * 0.3
-                      for s in ((cin, cout), (cout,), (9, cout), (cout,)))
-    max_err = 0.0
+    n, h, w, cin = x32.shape
+    cout = w1.shape[1]
+    f32_err, share = 0.0, 0.0
     for dt in (torch.float32, torch.bfloat16):
+        bf16 = dt == torch.bfloat16
         xn = x32.to(dt)
         xc = xn.permute(1, 3, 2, 0).reshape(h, cin, w * n).contiguous()
+        if bf16:
+            y1 = (xn.float().reshape(-1, cin) @ w1.to(dt).float()
+                  + b1).abs().amax(0)
+            y1_tol = (ulp_bf16(y1) * wd.abs().sum(0))[None, :, None]
         for relu in (False, True):
+            before = fused_conv_dp_cm.launches_mma
             got = fused_conv_dp_cm(xc, w1, b1, wd, bd, w=w, n=n, relu=relu)
+            mma = fused_conv_dp_cm.launches_mma - before
+            if mma != int(bf16 and max(cin, cout) <= 64):
+                raise AssertionError(f"convdp_cm {label} {dt}: {mma} "
+                                     "tensor-core route launches")
+            if bf16:
+                again = fused_conv_dp_cm(xc, w1, b1, wd, bd, w=w, n=n,
+                                         relu=relu)
             plain = fused_conv_dp_cm_plain(xc, w1, b1, wd, bd, w=w, n=n,
                                            relu=relu)
             k4 = fused_conv_dp(xn, w1, b1, wd, bd, relu=relu).permute(
                 1, 3, 2, 0).reshape(h, cout, w * n)
             torch.cuda.synchronize()
+            if bf16 and not torch.equal(got, again):
+                raise AssertionError(f"convdp_cm {label} bf16: two calls "
+                                     "differ")
             g = got.float()
             for what, ref in (("plain", plain.float()), ("nhwc", k4.float())):
                 d = (g - ref).abs()
-                if dt == torch.float32:
+                if not bf16:
                     if what == "plain":
-                        max_err = max(max_err, float(d.max()))
+                        f32_err = max(f32_err, float(d.max()))
                     ok = bool((d <= 1e-5 + 1e-5 * ref.abs()).all())
                 else:
-                    y1 = (xn.float().reshape(-1, cin) @ w1.to(dt).float()
-                          + b1).abs().amax(0)
-                    tol = (ulp_bf16(y1) * wd.abs().sum(0))[None, :, None] \
-                        + ulp_bf16(torch.maximum(g.abs(), ref.abs()))
+                    tol = y1_tol + ulp_bf16(torch.maximum(g.abs(),
+                                                          ref.abs()))
+                    share = max(share, float((d / tol).max()))
                     ok = bool((d <= tol).all())
-                log(f"[convdp_cm] {str(dt)[6:]} relu={relu} kernel vs "
-                    f"{what}: max abs diff {float(d.max()):.3e}")
+                log(f"[convdp_cm] {label} {str(dt)[6:]} relu={relu} kernel "
+                    f"vs {what}: max abs diff {float(d.max()):.3e}")
                 if not ok:
-                    raise AssertionError(f"convdp_cm kernel != {what} "
-                                         f"({dt}, relu={relu})")
+                    raise AssertionError(f"convdp_cm kernel != {what} at "
+                                         f"{label} ({dt}, relu={relu})")
             del got, plain, k4, g
+    return f32_err, share
+
+
+def phase_convdp_cm():
+    """The channels-major ConvDP kernel (_check_convdp_cm) at the bench
+    shape (64 -> 64, 160^2, N = 128; seeded on the card) and at the
+    ragged shapes of CM_RAGGED. Times the bf16 kernel, its plain version
+    and the library pair at the bench shape, then runs the bench twin with
+    the launch counters from zero: all 120 launches on the tensor-core
+    route."""
+    import torch
+    import torch.nn.functional as F
+    from yunet_tpu_torch.ops.convdp_cm import (fused_conv_dp_cm,
+                                               fused_conv_dp_cm_plain)
+    from yunet_tpu_torch.tools import bench_convdp_cm as bench
+    n, h, w, cin, cout = bench.N, bench.H, bench.W, bench.CIN, bench.COUT
+    gen = torch.Generator(device=DEV).manual_seed(7)
+
+    def draw(n, h, w, cin, cout):
+        return (torch.randn((n, h, w, cin), generator=gen, device=DEV),
+                *(torch.randn(s, generator=gen, device=DEV) * 0.3
+                  for s in ((cin, cout), (cout,), (9, cout), (cout,))))
+
+    x32, w1, b1, wd, bd = draw(n, h, w, cin, cout)
+    max_err, share = _check_convdp_cm(f"{h}x{w} {cin}->{cout} N={n}", x32,
+                                      w1, b1, wd, bd)
+    for rh, rw, rci, rco, rn in CM_RAGGED:
+        e, s = _check_convdp_cm(f"{rh}x{rw} {rci}->{rco} N={rn}",
+                                *draw(rn, rh, rw, rci, rco))
+        max_err, share = max(max_err, e), max(share, s)
+    log(f"[convdp_cm] worst: f32 abs err {max_err:.3e} (rtol/atol 1e-5); "
+        f"bf16 diff at most {share:.3f} of its tolerance; every bf16 call "
+        "on the tensor-core route, repeats bit-equal")
     xn = x32.to(torch.bfloat16)
     xc = xn.permute(1, 3, 2, 0).reshape(h, cin, w * n).contiguous()
     del x32
-    ms = cuda_ms(lambda: fused_conv_dp_cm(xc, w1, b1, wd, bd, w=w, n=n),
-                 warmup=2, iters=5, windows=3)
+    ms = cuda_ms(lambda: fused_conv_dp_cm(xc, w1, b1, wd, bd, w=w, n=n))
     pms = cuda_ms(lambda: fused_conv_dp_cm_plain(xc, w1, b1, wd, bd, w=w,
                                                  n=n),
                   warmup=1, iters=2, windows=3)
@@ -1246,8 +1295,7 @@ def phase_convdp_cm():
           bd.to(torch.bfloat16))
     xl = xn.permute(0, 3, 1, 2)
     lms = cuda_ms(lambda: F.conv2d(F.conv2d(xl, lw[0], lw[1]), lw[2], lw[3],
-                                   padding=1, groups=cout),
-                  warmup=2, iters=5, windows=3)
+                                   padding=1, groups=cout))
     nbytes = h * w * n * (cin + cout) * 2 + (cin * cout + 11 * cout) * 4
     ops = 2 * h * w * n * cout * (cin + 9 + 1)
     bnd, by = bound_ms(nbytes, ops, BF16_FLOPS)
@@ -1260,15 +1308,37 @@ def phase_convdp_cm():
     reset_launch_counts()
     res = bench.run()
     torch.cuda.synchronize()
-    launches = launch_counts()["convdp_cm"]
+    counts = launch_counts()
+    launches, launches_mma = counts["convdp_cm"], counts["convdp_cm_mma"]
     for name, r in res.items():
         log(f"[bench_convdp_cm] {name}: {r['ms_per_unit']:.4f} ms/unit, "
             f"{r['gb_s']:.1f} GB/s (windows {[round(v, 4) for v in r['windows']]})")
-    if launches != (1 + bench.WINDOWS) * bench.ITERS:
+    want = (1 + bench.WINDOWS) * bench.ITERS
+    log(f"[bench_convdp_cm] launches {launches}, on the tensor-core route "
+        f"{launches_mma}")
+    if launches != want or launches_mma != want:
         raise AssertionError(f"the bench launched the channels-major kernel "
-                             f"{launches} times")
-    return max_err, launches, {"ms": ms, "plain_ms": pms, "library_ms": lms,
-                               "bound_ms": bnd, "bound_by": by}
+                             f"{launches} times, {launches_mma} on the "
+                             f"tensor-core route (want {want} and {want})")
+    return max_err, (launches, launches_mma), {
+        "ms": ms, "plain_ms": pms, "library_ms": lms, "bound_ms": bnd,
+        "bound_by": by, "bf16_tol_share": share}
+
+
+def convdp_cm_only():
+    """phase_convdp_cm alone, for quick work on the channels-major kernel:
+    python3 -c "import chip_smoke as s; s.convdp_cm_only()" from the
+    repository root. Builds only convdp_cm.cu and convdp.cu (the phase
+    compares with the NHWC kernel)."""
+    import torch
+    from yunet_tpu_torch.ops import convdp, convdp_cm
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    log(f"[device] {torch.cuda.get_device_name(0)} | {nvidia_smi_line()}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_build({"convdp_cm.cu": convdp_cm.LIB, "convdp.cu": convdp.LIB})
+    phase_convdp_cm()
 
 
 def load_model():
@@ -1311,7 +1381,7 @@ def main() -> int:
     train_launches, batches = phase_train(sd)
     bwd_err, bwd_t = phase_convdp_bwd(folded, cfg)
     fused_launches, _ = phase_train_fused(sd, batches)
-    cm_err, cm_launches, cm_t = phase_convdp_cm()
+    cm_err, (cm_launches, cm_mma), cm_t = phase_convdp_cm()
     phase_times(fdet)
     phase_train_times(sd, batches[0])
 
@@ -1353,7 +1423,9 @@ def main() -> int:
         {"name": "convdp_cm", "route": "cuda",
          "source": "yunet_tpu_torch/csrc/convdp_cm.cu",
          "replaces": "yunet_tpu/ops/convdp_cm_pallas.py:57",
-         "launches": cm_launches, "max_abs_err": cm_err, **cm_t},
+         "launches": cm_launches,
+         # of those, the launches of the bf16 (tensor-core) route
+         "launches_mma": cm_mma, "max_abs_err": cm_err, **cm_t},
     ]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
