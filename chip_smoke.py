@@ -76,6 +76,52 @@ def cuda_ms(fn, *, warmup=3, iters=10, windows=5) -> float:
     return statistics.median(per_call)
 
 
+def device_ms(fn, *, warmup=3, iters=20, windows=5):
+    """(device ms, host ms) per call, medians over windows. A
+    torch.cuda._sleep queued before the start event holds the card until
+    the host has queued every timed call, so the events bracket
+    back-to-back device work with no host gap in it; the host clock
+    meanwhile times the issue of the calls. A window in which the sleep
+    ended before the last call was queued is run again with a longer
+    sleep."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 6)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = 10 ** 6 / start.elapsed_time(end)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    cycles = int(2e3 * (time.perf_counter() - t0) * cycles_per_ms) + 10 ** 6
+    torch.cuda.synchronize()
+    dev, host = [], []
+    while len(dev) < windows:
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+        late = start.query()
+        end.record()
+        end.synchronize()
+        if late:
+            if cycles > 10 ** 11:
+                raise RuntimeError("device_ms: the host never got ahead "
+                                   "of the card")
+            cycles *= 2
+            continue
+        dev.append(start.elapsed_time(end) / iters)
+        host.append((t1 - t0) * 1e3 / iters)
+    return statistics.median(dev), statistics.median(host)
+
+
 # -- inputs ----------------------------------------------------------------
 
 def clustered_boxes(rng, n, size):
@@ -707,31 +753,130 @@ def simota_inputs(model, batch, priors, offset):
             batch["gt_valid"])
 
 
-def phase_simota(model, cfg, bsz=16, hw=640):
-    """The streamed SimOTA kernel against its plain version at the main
-    path's shapes (B=16, P=8400 at 640^2, G=128 slots, 3-40 faces an
-    image, image 0 with no valid GT, image 1 with clustered GTs): all four
-    outputs EQUAL; then the assignment assembled from the kernel's outputs
-    against the dense sim_ota_assign on the card (fg_mask and matched_gt
-    equal, matched_iou within 1e-6). Times both and computes the bound."""
+def tie_heavy_inputs(ins, seed=7):
+    """Three images of SimOTA inputs, made from the first three of ins,
+    where ties and short candidate lists are the rule: image 0 with all
+    MAX_GTS slots live (clustered boxes, many overlapping), image 1 with
+    one score and one decoded box for every prior (a box near its first
+    GT, so every valid prior ties with every other on IoU and class
+    cost), image 2 with 2-6 px GTs, too small to hold k priors in box
+    and centre alike (their costs tie in the INF tier)."""
     import torch
-    from yunet_tpu_torch.ops.assign import (assemble_streamed, dynamic_k,
+    rng = np.random.RandomState(seed)
+    scores, offset, decoded, gtb, onehot, gv = (
+        t if t is ins[1] else t[:3].clone() for t in ins)
+    gtb[0] = torch.from_numpy(clustered_boxes(rng, MAX_GTS, 640))
+    gv[0] = True
+    onehot[0] = 1.0
+    if not gv[1].any():
+        raise AssertionError("tie_heavy_inputs: image 1 has no GT")
+    scores[1] = 0.3
+    decoded[1] = gtb[1, 0] + torch.tensor([2.0, -1.0, 3.0, 1.5],
+                                          device=DEV)
+    n = int(gv[2].sum())
+    c = rng.uniform(20, 620, (n, 2))
+    wh = rng.uniform(2, 6, (n, 2))
+    gtb[2, :n] = torch.from_numpy(np.concatenate(
+        [c - wh / 2, c + wh / 2], -1).astype(np.float32))
+    return scores, offset, decoded, gtb, onehot, gv
+
+
+def _check_simota(label, ins):
+    """streamed_simota's four outputs EQUAL to the plain version's, and
+    the assignment assembled from them against the dense sim_ota_assign
+    on the card (fg_mask and matched_gt equal, matched_iou within 1e-6).
+    Returns the outputs and topk_iou's largest difference."""
+    import torch
+    from yunet_tpu_torch.ops.assign import (assemble_streamed,
                                             sim_ota_assign_batched)
     from yunet_tpu_torch.ops.simota import (streamed_simota,
                                             streamed_simota_plain)
-    batch = _to_device(train_batch(np.random.RandomState(4), bsz, hw,
-                                   empty=(0,), clustered=(1,)))
-    priors, offset = train_priors(cfg, hw)
-    ins = simota_inputs(model, batch, priors, offset)
     got = streamed_simota(*ins)
     want = streamed_simota_plain(*ins)
     torch.cuda.synchronize()
     for name, g, w in zip(got._fields, got, want):
         if not torch.equal(g, w):
             bad = int((g != w).sum())
-            raise AssertionError(f"SimOTA kernel != plain ({name}): {bad} "
-                                 "elements differ")
+            raise AssertionError(f"SimOTA kernel != plain ({label}, {name}):"
+                                 f" {bad} elements differ")
     iou_err = float((got.topk_iou - want.topk_iou).abs().max())
+    scores, offset, decoded, gtb, _, gv = ins
+    res = assemble_streamed(got.valid_prior, got.best_gt, got.cand_idx,
+                            got.topk_iou, gtb, gv, decoded)
+    dense = sim_ota_assign_batched(
+        scores[..., None], offset, decoded, gtb,
+        torch.zeros(gv.shape, dtype=torch.int32, device=DEV), gv,
+        use_streamed=False)
+    if not (torch.equal(res.fg_mask, dense.fg_mask)
+            and torch.equal(res.matched_gt, dense.matched_gt)):
+        raise AssertionError(f"streamed assignment != dense sim_ota_assign "
+                             f"({label})")
+    miou = float((res.matched_iou - dense.matched_iou).abs().max())
+    if miou > 1e-6:
+        raise AssertionError(f"matched_iou differs by {miou} ({label})")
+    log(f"[simota] {label}: kernel == plain (valid GTs per image "
+        f"{gv.sum(1).tolist()}, valid priors {int(got.valid_prior.sum())});"
+        f" assembled == dense sim_ota_assign ({int(res.fg_mask.sum())} "
+        f"positives, matched_iou max abs diff {miou})")
+    return got, iou_err
+
+
+def simota_entry_points(lib, ins, k=10):
+    """The two entry points of a SimOTA library (any build of a simota.cu
+    with this C interface) as closures over ins, with the assigner's
+    default constants and outputs allocated once: for timing each launch
+    alone. valid_best runs once here, so topk has its input. Returns
+    (valid_best, topk, outputs)."""
+    import torch
+    from yunet_tpu_torch.ops._build import check_cuda_status
+    scores, _, _, gtb, _, gv = ins
+    (b, p), g = scores.shape, gtb.shape[1]
+    outs = (torch.empty((b, p), dtype=torch.bool, device=DEV),
+            torch.empty((b, p), dtype=torch.int32, device=DEV),
+            torch.empty((b, g, k), dtype=torch.int32, device=DEV),
+            torch.empty((b, g, k), dtype=torch.float32, device=DEV))
+    valid, best, cand, topk = (t.data_ptr() for t in outs)
+    ptrs = [t.data_ptr() for t in ins[:5]] + [
+        gv.view(torch.uint8).data_ptr()]
+    consts = (2.5, 3.0, 1.0, 1e-7)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def valid_best():
+        check_cuda_status(lib, lib.yunet_simota_valid_best(
+            *ptrs, b, p, g, *consts, valid, best, stream), "valid_best")
+
+    def topk_():
+        check_cuda_status(lib, lib.yunet_simota_topk(
+            *ptrs, valid, b, p, g, k, *consts, cand, topk, stream), "topk")
+
+    valid_best()
+    return valid_best, topk_, outs
+
+
+def phase_simota(model, cfg, bsz=16, hw=640, others=None):
+    """The streamed SimOTA kernel against its plain version at the main
+    path's shapes (B=16, P=8400 at 640^2, G=128 slots, 3-40 faces an
+    image, image 0 with no valid GT, image 1 with clustered GTs) and on
+    tie_heavy_inputs: all four outputs EQUAL; then the assignment
+    assembled from the kernel's outputs against the dense sim_ota_assign
+    on the card. Times: the event time per back-to-back call (cuda_ms),
+    the device time per call and the host's time to issue one
+    (device_ms), each of the two launches alone on the device, the plain
+    version, and the bound. others maps names to the NativeLibs of
+    other simota.cu builds with the same C interface: each is held equal
+    to the kernel and its launches are timed beside the kernel's, in the
+    order others, kernel, kernel, others reversed."""
+    import torch
+    from yunet_tpu_torch.ops import simota
+    from yunet_tpu_torch.ops.assign import dynamic_k
+    from yunet_tpu_torch.ops.simota import (streamed_simota,
+                                            streamed_simota_plain)
+    batch = _to_device(train_batch(np.random.RandomState(4), bsz, hw,
+                                   empty=(0,), clustered=(1,)))
+    priors, offset = train_priors(cfg, hw)
+    ins = simota_inputs(model, batch, priors, offset)
+    got, iou_err = _check_simota(f"B={bsz} P={priors.shape[0]} "
+                                 f"G={MAX_GTS}", ins)
     gv = batch["gt_valid"]
     k = got.cand_idx.shape[-1]
     # multi-matches in the clustered image: priors taken by several GTs
@@ -742,30 +887,33 @@ def phase_simota(model, cfg, bsz=16, hw=640):
         1, got.cand_idx.reshape(bsz, -1).long(),
         take.reshape(bsz, -1).int())
     multi = (count > 1).sum(1).tolist()
-    log(f"[simota] B={bsz} P={priors.shape[0]} G={MAX_GTS}: kernel == plain "
-        f"(valid GTs per image {gv.sum(1).tolist()}, valid priors "
-        f"{int(got.valid_prior.sum())}, multi-matched priors per image "
-        f"{multi}); topk_iou max abs err {iou_err}")
+    log(f"[simota] multi-matched priors per image {multi}; topk_iou max "
+        f"abs err {iou_err}")
     if multi[1] == 0 or got.valid_prior[0].any():
         raise AssertionError("the clustered image has no multi-match, or "
                              "the image without GTs has valid priors")
-
-    scores, offset, decoded = ins[0][..., None], ins[1], ins[2]
-    args = (scores, offset, decoded, batch["gt_bboxes"],
-            batch["gt_labels"], gv)
-    res = assemble_streamed(got.valid_prior, got.best_gt, got.cand_idx,
-                            got.topk_iou, batch["gt_bboxes"], gv, decoded)
-    dense = sim_ota_assign_batched(*args, use_streamed=False)
-    if not (torch.equal(res.fg_mask, dense.fg_mask)
-            and torch.equal(res.matched_gt, dense.matched_gt)):
-        raise AssertionError("streamed assignment != dense sim_ota_assign")
-    miou = float((res.matched_iou - dense.matched_iou).abs().max())
-    if miou > 1e-6:
-        raise AssertionError(f"matched_iou differs by {miou}")
-    log(f"[simota] assembled == dense sim_ota_assign: {int(res.fg_mask.sum())}"
-        f" positives, matched_iou max abs diff {miou}")
+    for kk in (1, 16):      # the switch's other instantiations
+        if not all(torch.equal(a, b) for a, b in zip(
+                streamed_simota(*ins, k=kk),
+                streamed_simota_plain(*ins, k=kk))):
+            raise AssertionError(f"SimOTA kernel != plain at k={kk}")
+    log("[simota] k=1 and k=16: kernel == plain")
+    ties = tie_heavy_inputs(ins)
+    tgot, terr = _check_simota("tie-heavy B=3", ties)
+    iou_err = max(iou_err, terr)
+    in_gts, in_cts = simota._pair_masks(ties[1], ties[3], ties[5], 2.5)
+    n_both = (in_gts & in_cts)[2].sum(0)[ties[5][2]]
+    short = int((n_both < k).sum())
+    log(f"[simota] tie-heavy: {short} of image 2's {n_both.numel()} GTs "
+        f"have fewer than k={k} priors in box and centre")
+    if short == 0:
+        raise AssertionError("no GT of the tie-heavy image 2 is short of "
+                             "k in-box-and-centre priors")
 
     ms = cuda_ms(lambda: streamed_simota(*ins))
+    dev_ms, host_ms = device_ms(lambda: streamed_simota(*ins))
+    vb, tk, _ = simota_entry_points(simota.LIB.get(), ins)
+    vb_ms, tk_ms = device_ms(vb)[0], device_ms(tk)[0]
     plain = cuda_ms(lambda: streamed_simota_plain(*ins), warmup=1, iters=3)
     # the bound: every input read and output written once; ~45 f32
     # operations (one of them a log, one a log1p, one a sqrt) for each
@@ -773,10 +921,25 @@ def phase_simota(model, cfg, bsz=16, hw=640):
     nbytes = sum(t.numel() * t.element_size() for t in ins + tuple(got))
     pairs = priors.shape[0] * int(gv.sum())
     bnd, by = bound_ms(nbytes, 45 * pairs, F32_FLOPS)
-    log(f"[simota] time: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{bnd:.6f} ms ({by}; {nbytes} bytes, {pairs} live pairs)")
+    log(f"[simota] time: {ms:.4f} ms an event-timed back-to-back call; "
+        f"device {dev_ms:.4f} ms a call (valid_best {vb_ms:.4f} + topk "
+        f"{tk_ms:.4f} alone), host {host_ms:.4f} ms to issue a call; plain "
+        f"{plain:.4f} ms; bound {bnd:.6f} ms ({by}; {nbytes} bytes, "
+        f"{pairs} live pairs)")
+    if others:
+        order = list(others.items()) + [("kernel", simota.LIB)] * 2
+        for name, lib in order + order[-3::-1]:
+            vb, tk, outs = simota_entry_points(lib.get(), ins)
+            tk()
+            torch.cuda.synchronize()
+            if not all(torch.equal(o, g) for o, g in zip(outs, got)):
+                raise AssertionError(f"{name} build's outputs != kernel's")
+            log(f"[simota] device alone, {name}: valid_best "
+                f"{device_ms(vb)[0]:.4f} ms, topk {device_ms(tk)[0]:.4f} ms")
     return iou_err, {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
-                     "bound_by": by}
+                     "bound_by": by, "device_ms": dev_ms,
+                     "host_ms": host_ms, "valid_best_ms": vb_ms,
+                     "topk_ms": tk_ms}
 
 
 def plain_targets(aux, batch, cfg):
@@ -1339,6 +1502,30 @@ def convdp_cm_only():
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build({"convdp_cm.cu": convdp_cm.LIB, "convdp.cu": convdp.LIB})
     phase_convdp_cm()
+
+
+def simota_only(*others):
+    """phase_simota alone, for quick work on the SimOTA kernel:
+    python3 -c "import chip_smoke as s; s.simota_only()" from the
+    repository root. Builds only simota.cu. Each of others is the path of
+    another simota.cu with the same C interface (a scratch copy of an
+    earlier version or a variant, in a directory .gitignore lists): it is
+    built with the same flags, held equal to this kernel and timed beside
+    it."""
+    import torch
+    from yunet_tpu_torch.ops import simota
+    from yunet_tpu_torch.ops._build import NativeLib
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    log(f"[device] {torch.cuda.get_device_name(0)} | {nvidia_smi_line()}")
+    cfg, _, model, _ = load_model()
+    # the others are driven through the two per-launch entry points only
+    sigs = {name: sig for name, sig in simota.LIB.signatures.items()
+            if name != "yunet_simota"}
+    builds = {path: NativeLib(os.path.abspath(path), simota.LIB.compiler,
+                              sigs) for path in others}
+    phase_build({"simota.cu": simota.LIB, **builds})
+    phase_simota(model, cfg, others=builds)
 
 
 def load_model():
