@@ -11,13 +11,16 @@ For each program (serve b16 and b128 at 320x320, detect b1 at 320x320 and
 training step of yunet_n at 640x640 b16 with the shipped config: bf16
 trunk, streamed SimOTA kernel, from the same weights, on a seeded
 synthetic face batch; and the same step with train.fused_kernels, every
-ConvDPUnit through the fused forward and backward kernels) it runs 5 warm-up calls, then 20 calls under
-torch.profiler, then 20 calls without it. It prints the wall time per call (profiled and unprofiled), the sum of
-device kernel time per call, the busy share (device kernel time over the
-profiled wall), the top device kernels and the port's own kernels
-summed over their instantiations, and writes the same to
-chiprun_out/chip_profile.json. The profiler slows the host, so the busy
-share it gives is a lower bound for the unprofiled program.
+ConvDPUnit through the fused forward and backward kernels) it runs 5
+warm-up calls, then 20 calls under torch.profiler, then 20 calls without
+it. It prints the wall time per call (profiled and unprofiled), the sum
+of device kernel time per call, the busy share (device kernel time over
+the profiled wall), the top device kernels and the port's own kernels
+summed over their instantiations, and for the serving and detect
+programs each image's NMS candidate count (the NMS kernel's work); it
+writes the same to chiprun_out/chip_profile.json. The profiler slows the
+host, so the busy share it gives is a lower bound for the unprofiled
+program.
 """
 
 from __future__ import annotations
@@ -114,6 +117,12 @@ def main() -> int:
              "serve_b128_320": (det.serve_packed, batch(128, 320), 750),
              "detect_b1_320": (det.detect_packed, batch(1, 320), 5000),
              "detect_b1_640": (det.detect_packed, batch(1, 640), 5000)}
+    # the NMS kernel's work: each image's candidate count (scores at or
+    # above the threshold, at most K), which sets its serial steps
+    nms_counts = {
+        name: (det.raw(x, conv_kernel=fn == det.detect_packed)[0]
+               >= det.cfg.test.score_thr).sum(1).clamp(max=k).tolist()
+        for name, (fn, x, k) in progs.items()}
     progs = {name: (lambda f=fn, x=x, k=k: f(x, k))
              for name, (fn, x, k) in progs.items()}
     cfg = yunet_n()
@@ -132,6 +141,9 @@ def main() -> int:
     out = {"device": smi, "calls": CALLS}
     for name, fn in progs.items():
         r = profile_program(fn)
+        if name in nms_counts:
+            r["nms_counts"] = nms_counts[name]
+            cs.log(f"== {name}: NMS candidates an image {nms_counts[name]}")
         out[name] = r
         cs.log(f"== {name}: wall {r['wall_ms_profiled']:.4f} ms/call "
                f"profiled, {r['wall_ms_unprofiled']:.4f} unprofiled; device "

@@ -27,6 +27,7 @@ them, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -258,7 +259,8 @@ def phase_build(libs=None):
                     "simota.cu": simota.LIB,
                     "convdp_bwd.cu": convdp_train.LIB,
                     "convdp_cm.cu": convdp_cm.LIB,
-                    "host_nms.cpp": native.LIB}
+                    "host_nms.cpp": native.LIB,
+                    "nms_serial.cu": serial_nms_lib()}
 
     def build(lib):
         t0 = time.perf_counter()
@@ -311,67 +313,321 @@ def bound_ms(nbytes, ops, peak):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_nms():
-    """The NMS kernel against its plain version: keep sets exactly equal."""
+SERIAL_NMS = os.path.join(ROOT, "yunet_tpu_torch", "tools", "nms_serial.cu")
+
+
+@functools.lru_cache(maxsize=None)
+def serial_nms_lib():
+    """The serial one-block-per-image NMS (tools/nms_serial.cu), the
+    yardstick phase_nms times beside the kernel."""
+    return nms_build(SERIAL_NMS)
+
+
+def nms_build(path):
+    """A NativeLib of a greedy-NMS source, built with csrc/nms.cu's flags.
+    A source with the serial kernel's C interface (yunet_greedy_nms(boxes,
+    counts, batch, k, thr, keep, stream) and yunet_nms_smem_bytes, as
+    tools/nms_serial.cu) is bound as such; any other with csrc/nms.cu's."""
+    import ctypes
+    from yunet_tpu_torch.ops import nms
+    from yunet_tpu_torch.ops._build import NativeLib, cuda_signatures
+    with open(path, "rb") as f:
+        src = f.read()
+    serial = b"yunet_nms_smem_bytes" in src
+    # csrc/nms.cu's entry points that this source has
+    sigs = {name: sig for name, sig in nms.LIB.signatures.items()
+            if name.encode() in src}
+    if serial:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        sigs = {**cuda_signatures(yunet_greedy_nms=[
+            p, p, i, i, ctypes.c_float, p, p]),
+            "yunet_nms_smem_bytes": (ctypes.c_size_t, [i])}
+    return NativeLib(os.path.abspath(path), nms.LIB.compiler, sigs)
+
+
+def nms_keep_fn(native):
+    """greedy_nms_keep driven through another build (a NativeLib from
+    nms_build). For a serial-interface build it is the wrapper that build
+    had, step by step (the input checks, the library under its lock, a
+    ctypes query of the shared memory, a u8 keep, the launch in the
+    device's context, the status check, a .bool() cast), so that its host
+    time is timed too; any other build runs as greedy_nms_keep runs
+    csrc/nms.cu, without the input checks."""
+    import torch
+    from yunet_tpu_torch.ops import nms
+    from yunet_tpu_torch.ops._build import check_cuda_status
+    if "yunet_nms_smem_bytes" not in native.signatures:
+        lib = native.get()
+
+        def bitmask_keep(boxes, counts, iou_thr):
+            bsz, k, _ = boxes.shape
+            dev = boxes.device
+            keep = torch.empty((bsz, k), dtype=torch.bool, device=dev)
+            if bsz and k:
+                mask = torch.empty((bsz, k, nms.mask_words(k)),
+                                   dtype=torch.int32, device=dev)
+                check_cuda_status(lib, lib.yunet_greedy_nms(
+                    boxes.data_ptr(), counts.data_ptr(), bsz, k,
+                    float(iou_thr), mask.data_ptr(), keep.data_ptr(),
+                    dev.index, torch.cuda.current_stream(dev).cuda_stream),
+                    "greedy NMS build")
+            return keep
+        return bitmask_keep
+
+    def keep_fn(boxes, counts, iou_thr):
+        if boxes.dim() != 3 or boxes.shape[-1] != 4 or \
+                counts.shape != boxes.shape[:1]:
+            raise ValueError("want boxes (B, K, 4) and counts (B,)")
+        if boxes.device.type != "cuda":
+            raise ValueError(f"no kernel for {boxes.device}")
+        if boxes.dtype != torch.float32 or counts.dtype != torch.int32:
+            raise TypeError("boxes must be f32 and counts i32")
+        if counts.device != boxes.device or not (
+                boxes.is_contiguous() and counts.is_contiguous()):
+            raise ValueError("boxes and counts must be contiguous on one "
+                             "device")
+        bsz, k, _ = boxes.shape
+        lib = native.get()
+        if lib.yunet_nms_smem_bytes(k) > 227 * 1024:
+            raise ValueError(f"{k} candidates do not fit a block")
+        keep = torch.empty((bsz, k), dtype=torch.uint8, device=boxes.device)
+        if bsz:
+            with torch.cuda.device(boxes.device):
+                code = lib.yunet_greedy_nms(
+                    boxes.data_ptr(), counts.data_ptr(), bsz, k,
+                    float(iou_thr), keep.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+            check_cuda_status(lib, code, "serial greedy NMS")
+        return keep.bool()
+    return keep_fn
+
+
+def nms_entry_points(lib, boxes, counts):
+    """The mask and the scan launch of a bitmask NMS library (csrc/nms.cu's
+    C interface) as closures over boxes and counts, with the scratch mask
+    and keep allocated once: for timing each launch alone. The mask runs
+    once here, so the scan has its input."""
+    import torch
+    from yunet_tpu_torch.ops import nms
+    from yunet_tpu_torch.ops._build import check_cuda_status
+    bsz, k, _ = boxes.shape
+    dev = boxes.device
+    mask = torch.empty((bsz, k, nms.mask_words(k)), dtype=torch.int32,
+                       device=dev)
+    keep = torch.empty((bsz, k), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def mask_():
+        check_cuda_status(lib, lib.yunet_nms_mask(
+            boxes.data_ptr(), counts.data_ptr(), bsz, k, IOU,
+            mask.data_ptr(), dev.index, stream), "nms mask")
+
+    def scan_():
+        check_cuda_status(lib, lib.yunet_nms_scan(
+            counts.data_ptr(), bsz, k, mask.data_ptr(), keep.data_ptr(),
+            dev.index, stream), "nms scan")
+
+    mask_()
+    return mask_, scan_
+
+
+def nms_scores(rng, counts, p):
+    """(B, P) scores under SCORE with counts[b] of image b above it."""
+    scores = rng.uniform(0, 0.01, (len(counts), p)).astype(np.float32)
+    for b, cnt in enumerate(counts):
+        scores[b, rng.choice(p, cnt, replace=False)] = \
+            rng.uniform(0.05, 1.0, cnt)
+    return scores
+
+
+def nms_cases():
+    """(label, boxes (B, P, 4), scores (B, P), top_k) for phase_nms: every
+    batch of the serving path's sizes (B 1, 16, 128 at K=750 and 320^2,
+    image 0 with k candidates and the others with up to k), b1 at K=5000
+    and 640^2 with k on both sides of a multiple of 32 and all valid, b1
+    at the kernel's largest K (nms.MAX_K), all valid, then
+    the edge cases: an IoU exactly at the threshold (kept: the test is
+    strict) beside one just above it, zero-area, inverted and duplicate
+    boxes, and counts on both sides of multiples of 32 in one batch."""
+    from yunet_tpu_torch.ops import nms
+    rng = np.random.RandomState(0)
+    cases = []
+    for bsz in (1, 16, 128):
+        for k in (0, 1, 12, 60, 512, 750):
+            counts = [k] + [rng.randint(0, k + 1) for _ in range(bsz - 1)]
+            boxes = np.stack([clustered_boxes(rng, 2100, 320)
+                              for _ in range(bsz)])
+            cases.append((f"B={bsz} k={k}", boxes,
+                          nms_scores(rng, counts, 2100), 750))
+    for k in (31, 32, 33, 1000, 5000):
+        cases.append((f"B=1 k={k}", clustered_boxes(rng, 8400, 640)[None],
+                      nms_scores(rng, [k], 8400), 5000))
+    # the largest K the kernel takes, all valid
+    cases.append((f"B=1 k={nms.MAX_K}", clustered_boxes(rng, 9800, 640)[None],
+                  nms_scores(rng, [nms.MAX_K], 9800), nms.MAX_K))
+
+    # the threshold pair: inter 45 over union 100 is 0.45 in f32, equal
+    # to the threshold, so both stay; 4.6 wide gives IoU > 0.45
+    boxes = clustered_boxes(rng, 2100, 320)[None]
+    scores = nms_scores(rng, [40], 2100) * 0.5
+    special = [(1000, 1000, 1010, 1010), (1000, 1000, 1004.5, 1010),
+               (2000, 2000, 2010, 2010), (2000, 2000, 2004.6, 2010)]
+    for i, box in enumerate(special):
+        boxes[0, i], scores[0, i] = box, 0.9 - 0.1 * i
+    cases.append(("IoU at the threshold", boxes, scores, 750))
+
+    # 64 pairs with IoUs a few ulps either side of the threshold: box B of
+    # pair k is 4.5 + (k - 32) * 2^-21 wide (its ulp), box A 10, both 10
+    # high, the pairs far apart
+    boxes = clustered_boxes(rng, 2100, 320)[None]
+    scores = nms_scores(rng, [0], 2100)
+    for k in range(64):
+        y0 = 1000.0 + 100.0 * k
+        boxes[0, 2 * k] = (0, y0, 10, y0 + 10)
+        boxes[0, 2 * k + 1] = (0, y0, 4.5 + (k - 32) * 2.0 ** -21, y0 + 10)
+        scores[0, 2 * k:2 * k + 2] = (0.9 - 0.01 * k, 0.895 - 0.01 * k)
+    cases.append(("IoUs within ulps of the threshold", boxes, scores, 750))
+
+    # zero-area (x1 == x2, points), inverted (x2 < x1) and duplicate
+    # boxes, duplicates with tied and with distinct scores
+    boxes = clustered_boxes(rng, 2100, 320)[None].repeat(2, 0)
+    scores = nms_scores(rng, [80, 80], 2100)
+    for b in range(2):
+        top = np.argsort(-scores[b], kind="stable")[:80]
+        bx = boxes[b, top]
+        bx[0:8, 2] = bx[0:8, 0]                          # zero width
+        bx[8:14] = np.tile(bx[8, :2], 2)                  # one point, x6
+        bx[14:20, 3] = bx[14:20, 1] - 5                  # inverted
+        bx[20:40:2] = bx[21:41:2]                        # duplicate pairs
+        boxes[b, top] = bx
+        if b:                                            # tie the pairs
+            scores[b, top[20:40:2]] = scores[b, top[21:41:2]]
+    cases.append(("zero-area, inverted, duplicate", boxes, scores, 750))
+
+    counts = [31, 32, 33, 63, 64, 65, 95, 96, 97]
+    boxes = np.stack([clustered_boxes(rng, 2100, 320) for _ in counts])
+    cases.append(("counts around multiples of 32", boxes,
+                  nms_scores(rng, counts, 2100), 750))
+    return cases
+
+
+def _check_nms(label, boxes, scores, top_k, others):
+    """The kernel's dets, keep and idx against the plain version's, the
+    per-image entry at B=1, and each other build's keep set. Returns the
+    largest absolute difference seen."""
     import torch
     from yunet_tpu_torch.ops.nms import (device_nms, device_nms_batched,
-                                         greedy_nms_keep,
-                                         greedy_nms_keep_plain)
-    rng = np.random.RandomState(0)
-    cases = [(b, k) for b in (1, 16, 128)
-             for k in (0, 1, 12, 60, 512, 750)] + [(1, 5000)]
+                                         topk_candidates)
+    bt = torch.from_numpy(boxes).to(DEV)
+    st = torch.from_numpy(scores).to(DEV)
+    got = device_nms_batched(bt, st, top_k=top_k, iou_thr=IOU,
+                             score_thr=SCORE)
+    want = plain_nms_batched(bt, st, top_k)
+    torch.cuda.synchronize()
     max_err = 0.0
-    for bsz, k in cases:
-        p, top_k = (8400, 5000) if k > 750 else (2100, 750)
-        boxes = np.stack([clustered_boxes(rng, p, 320 if p == 2100 else 640)
-                          for _ in range(bsz)])
-        scores = rng.uniform(0, 0.01, (bsz, p)).astype(np.float32)
-        for b in range(bsz):
-            cnt = k if b == 0 else rng.randint(0, k + 1)
-            scores[b, rng.choice(p, cnt, replace=False)] = \
-                rng.uniform(0.05, 1.0, cnt)
-        bt = torch.from_numpy(boxes).to(DEV)
-        st = torch.from_numpy(scores).to(DEV)
-        got = device_nms_batched(bt, st, top_k=top_k, iou_thr=IOU,
-                                 score_thr=SCORE)
-        want = plain_nms_batched(bt, st, top_k)
-        torch.cuda.synchronize()
-        for g, w, what in zip(got, want, ("dets", "keep", "idx")):
-            if g.numel():
-                max_err = max(max_err, float(
-                    (g.double() - w.double()).abs().max()))
-            if not torch.equal(g, w):
-                raise AssertionError(f"NMS kernel != plain ({what}) at "
-                                     f"B={bsz} k={k}")
-        if bsz == 1:                             # the per-image entry
-            one = device_nms(bt[0], st[0], top_k=top_k)
-            if not torch.equal(one[1], want[1][0]):
-                raise AssertionError(f"per-image NMS != plain at k={k}")
-        log(f"[nms] B={bsz:3d} k={k:4d} K={top_k}: keep sets equal "
-            f"({int(want[1].sum())} kept)")
-    # time the suppression step at serving shapes: 16 images x 750,
-    # 300 candidates an image; and one 640^2 image x 5000, all valid
+    for g, w, what in zip(got, want, ("dets", "keep", "idx")):
+        if g.numel():
+            max_err = max(max_err, float(
+                (g.double() - w.double()).abs().max()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"NMS kernel != plain ({what}), {label}")
+    if bt.shape[0] == 1:                         # the per-image entry
+        one = device_nms(bt[0], st[0], top_k=top_k)
+        if not all(torch.equal(o, w[0]) for o, w in zip(one, want)):
+            raise AssertionError(f"per-image NMS != plain, {label}")
+    if others:
+        top_boxes, _, _, counts = topk_candidates(bt, st, top_k, SCORE)
+        for name, keep_fn in others.items():
+            if not torch.equal(keep_fn(top_boxes.contiguous(), counts, IOU),
+                               want[1]):
+                raise AssertionError(f"{name} build's keep != plain, "
+                                     f"{label}")
+    n = (st >= SCORE).sum(1)
+    log(f"[nms] {label} (B={bt.shape[0]}, K={top_k}, candidates "
+        f"{int(n.min())}-{int(n.max())}): keep sets equal "
+        f"({int(want[1].sum())} kept)")
+    return max_err
+
+
+def phase_nms(others=None, libs=None):
+    """The NMS kernel against its plain version on nms_cases(): dets, keep
+    and idx EQUAL. Then its times at four shapes: the serving path's b16
+    and b128 (K=750, 300 candidates an image), one 640^2 image at K=5000
+    (device_nms_pre), all valid, and the same with the 80 candidates a
+    real 640^2 detect gives (chip_profile.py). Each shape gets the event
+    time per back-to-back call (cuda_ms), the device time per call and the
+    host's time to issue one (device_ms), the plain version and the
+    bound.
+    others maps names to keep functions of other builds (nms_keep_fn):
+    each is held equal to the plain version on every case and timed in
+    the order others, kernel, kernel, others reversed; each time kept is
+    the least of a build's runs. The kernel's two launches are also timed
+    alone on the device, and so are those of each build in libs (names to
+    NativeLibs) with csrc/nms.cu's C interface. Returns the largest
+    difference and {shape: times}."""
+    import torch
+    from yunet_tpu_torch.ops import nms
+    from yunet_tpu_torch.ops.nms import greedy_nms_keep, greedy_nms_keep_plain
+    others = others or {}
+    cases = nms_cases()
+    max_err = max(_check_nms(*case, others) for case in cases)
+    _, boxes, scores, top_k = next(c for c in cases
+                                   if c[0] == "IoU at the threshold")
+    _, keep, idx = plain_nms_batched(torch.from_numpy(boxes).to(DEV),
+                                     torch.from_numpy(scores).to(DEV), top_k)
+    kept = set(idx[keep].tolist())
+    if not {0, 1, 2} <= kept or 3 in kept:
+        raise AssertionError("the threshold pair: want boxes 0, 1 and 2 "
+                             f"kept and 3 suppressed, kept {sorted(kept)[:8]}")
+    rng = np.random.RandomState(1)
     times = {}
-    for bsz, kk, cnt in ((16, 750, 300), (128, 750, 300), (1, 5000, 5000)):
+    for bsz, kk, cnt in ((16, 750, 300), (128, 750, 300), (1, 5000, 5000),
+                         (1, 5000, 80)):
         boxes = torch.from_numpy(np.stack([
             clustered_boxes(rng, kk, 320) for _ in range(bsz)])).to(DEV)
         counts = torch.full((bsz,), cnt, dtype=torch.int32, device=DEV)
-        ms = cuda_ms(lambda: greedy_nms_keep(boxes, counts, IOU))
+        fns = {"kernel": greedy_nms_keep, **others}
+        order = list(others) + ["kernel", "kernel"]
+        t = {}
+        for name in order + order[-3::-1]:
+            fn = (lambda f=fns[name]: f(boxes, counts, IOU))
+            ms = cuda_ms(fn)
+            dev, host = device_ms(fn)
+            t.setdefault(name, []).append((ms, dev, host))
+            log(f"[nms] time B={bsz} K={kk} n={cnt}, {name}: {ms:.4f} ms "
+                f"an event-timed back-to-back call; device {dev:.4f} ms, "
+                f"host {host:.4f} ms to issue a call")
+        # each launch alone, on the device, for every bitmask build
+        alone = {}
+        for name, lib in [("kernel", nms.LIB)] + [
+                (name, lib) for name, lib in (libs or {}).items()
+                if "yunet_nms_mask" in lib.signatures]:
+            mk, sc = nms_entry_points(lib.get(), boxes, counts)
+            alone[name] = [device_ms(f)[0] for f in (mk, sc)]
+            log(f"[nms] time B={bsz} K={kk} n={cnt}, {name}: mask "
+                f"{alone[name][0]:.4f} ms, scan {alone[name][1]:.4f} ms "
+                "alone on the device")
         plain = cuda_ms(lambda: greedy_nms_keep_plain(boxes, counts, IOU),
                         warmup=1, iters=2, windows=3)
-        # the bound: boxes and counts read, keep written; the IoU work
-        # this data needs, ~14 f32 operations for each pair (i, j > i)
-        # with i kept, j a candidate
+        # the bound: the cnt candidates' boxes and the counts read (boxes
+        # past cnt only reach keep entries that are masked), keep written;
+        # the IoU work this data needs, ~14 f32 operations for each pair
+        # (i, j > i) with i kept, j a candidate
         keep = greedy_nms_keep_plain(boxes, counts, IOU)[:, :cnt]
         pairs = int((keep * (cnt - 1 - torch.arange(cnt, device=DEV))).sum())
-        bnd, by = bound_ms(boxes.numel() * 4 + bsz * 4 + bsz * kk,
+        bnd, by = bound_ms(bsz * cnt * 16 + bsz * 4 + bsz * kk,
                            14 * pairs, F32_FLOPS)
-        times[f"b{bsz}_k{kk}_n{cnt}"] = {"ms": ms, "plain_ms": plain,
-                                         "bound_ms": bnd, "bound_by": by}
-        log(f"[nms] time B={bsz} K={kk} n={cnt}: kernel {ms:.4f} ms, "
-            f"plain {plain:.2f} ms, bound {bnd:.6f} ms ({by}; {pairs} "
-            "IoU pairs)")
-    return max_err, times["b16_k750_n300"]
+        best = {name: [min(x) for x in zip(*v)] for name, v in t.items()}
+        times[f"b{bsz}_k{kk}_n{cnt}"] = {
+            "ms": best["kernel"][0], "device_ms": best["kernel"][1],
+            "host_ms": best["kernel"][2], "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by,
+            "mask_ms": alone["kernel"][0], "scan_ms": alone["kernel"][1],
+            **{f"{name}_{what}": best[name][i] for name in others
+               for i, what in enumerate(("ms", "device_ms", "host_ms"))}}
+        log(f"[nms] time B={bsz} K={kk} n={cnt}: plain {plain:.2f} ms, "
+            f"bound {bnd:.6f} ms ({by}; {pairs} IoU pairs)")
+    return max_err, times
 
 
 def _convdp_unit_times(x, w1, b1, wd, bd, relu, **timing):
@@ -652,7 +908,8 @@ def phase_slice():
                                      f"thr {thr}")
         log(f"[slice] device NMS == host NMS at score_thr {thr:.4g} "
             f"(candidates/image {int(n_cand.min())}-{int(n_cand.max())}, "
-            f"kept {int(keep.sum())})")
+            f"kept {int(keep.sum())}); the kernel's counts "
+            f"{n_cand.tolist()}")
         if thr == SCORE and keep.sum(1).tolist() != counts:
             raise AssertionError(f"detect_batch kept {counts}, the same "
                                  f"raw outputs keep {keep.sum(1).tolist()}")
@@ -666,6 +923,9 @@ def phase_slice():
     # detections, the odd one scoring under 0.1), so bf16 pairs only the
     # detections scoring 0.1 or more; f32 keeps the same-count check, and
     # phase_convdp holds each unit to its plain version (bf16_excess)
+    n640 = int((fdet.raw(fdet._input([img640]), conv_kernel=True)[0]
+                >= SCORE).sum())
+    log(f"[slice] detect 640^2 b1: the kernel's count {n640} of K=5000")
     ref = det.detect(img640, use_device_nms=True)
     log(f"[slice] detect 640^2 b1 bf16: fused {single['bboxes'].shape[0]} "
         f"/ unfused {ref['bboxes'].shape[0]} detections")
@@ -1504,6 +1764,63 @@ def convdp_cm_only():
     phase_convdp_cm()
 
 
+def nms_only(*others):
+    """phase_nms alone, for quick work on the NMS kernel:
+    python3 -c "import chip_smoke as s; s.nms_only()" from the repository
+    root. Builds only csrc/nms.cu and the serial yardstick
+    tools/nms_serial.cu. Each of others is the path of another NMS source
+    (a scratch copy of an earlier version or a variant, in a directory
+    .gitignore lists), with either C interface (nms_build): it is built
+    with the same flags, held equal to the plain version on every case
+    and timed beside the kernel, alone (phase_nms) and inside the serving
+    and detect programs (phase_nms_walls)."""
+    import torch
+    from yunet_tpu_torch.ops import nms
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    log(f"[device] {torch.cuda.get_device_name(0)} | {nvidia_smi_line()}")
+    builds = {"serial": serial_nms_lib(),
+              **{path: nms_build(path) for path in others}}
+    phase_build({"nms.cu": nms.LIB, **builds})
+    keep_fns = {name: nms_keep_fn(lib) for name, lib in builds.items()}
+    phase_nms(keep_fns, builds)
+    phase_nms_walls(keep_fns)
+
+
+def phase_nms_walls(others):
+    """The walls of the programs the NMS kernel runs in, with the kernel
+    and with each other build's keep function (nms_keep_fn) in its place:
+    serve b16 and b128 at 320^2 and the fused detect b1 at 640^2, the
+    event time per back-to-back call (cuda_ms), in the order others,
+    kernel, kernel, others reversed. A build stands in for the kernel by
+    taking greedy_nms_keep's name in ops/nms.py, where device_nms_batched
+    looks it up."""
+    from yunet_tpu_torch.apis import init_detector
+    from yunet_tpu_torch.eval.detect import Detector
+    from yunet_tpu_torch.ops import nms
+    det = init_detector("yunet_n", FIXTURE, device=DEV)
+    fdet = Detector(det.cfg, det.model, device=DEV, fused=True)
+    rng = np.random.RandomState(3)
+    progs = {}
+    for bsz in (16, 128):
+        x = fdet._input([face_image(rng, 320, 320, 4) for _ in range(bsz)])
+        progs[f"serve b{bsz} 320^2"] = (
+            lambda x=x: fdet.serve_packed(x, 750))
+    x640 = fdet._input([face_image(rng, 640, 640, 4)])
+    progs["detect b1 640^2"] = lambda: fdet.detect_packed(x640, 5000)
+    kernel = nms.greedy_nms_keep
+    fns = {"kernel": kernel, **others}
+    order = list(others) + ["kernel", "kernel"]
+    try:
+        for prog, run in progs.items():
+            for name in order + order[-3::-1]:
+                nms.greedy_nms_keep = fns[name]
+                log(f"[walls] {prog}, {name} NMS: {cuda_ms(run):.4f} ms "
+                    "an event-timed back-to-back call")
+    finally:
+        nms.greedy_nms_keep = kernel
+
+
 def simota_only(*others):
     """phase_simota alone, for quick work on the SimOTA kernel:
     python3 -c "import chip_smoke as s; s.simota_only()" from the
@@ -1560,7 +1877,7 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     phase_build()
-    nms_err, nms_t = phase_nms()
+    nms_err, nms_t = phase_nms({"serial": nms_keep_fn(serial_nms_lib())})
     cfg, sd, model, folded = load_model()
     conv_err, conv_t = phase_convdp(folded, cfg)
     simota_err, simota_t = phase_simota(model, cfg)
@@ -1579,7 +1896,10 @@ def main() -> int:
          "also_replaces": "yunet_tpu/ops/nms_pallas.py:40",
          "launches": serve_launches["greedy_nms"], "max_abs_err": nms_err,
          # no single PyTorch call computes greedy NMS (no torchvision)
-         "library_ms": None, **nms_t},
+         "library_ms": None,
+         # the serving path's b16 shape; serial_*: the one-block-per-image
+         # kernel it replaced (tools/nms_serial.cu), timed in this run
+         **nms_t["b16_k750_n300"], "shapes": nms_t},
         {"name": "fused_conv_dp", "route": "cuda",
          "source": "yunet_tpu_torch/csrc/convdp.cu",
          "replaces": "yunet_tpu/ops/convdp_pallas.py:29",

@@ -9,14 +9,16 @@ above the score threshold. They return (dets (.., K, 5), keep (.., K) bool,
 idx (.., K)).
 
 The suppression step, ``greedy_nms_keep``, sends a CUDA tensor to the
-hand-written kernel (``csrc/nms.cu``, one thread block per image) and a
-CPU tensor to ``greedy_nms_keep_plain``, the same greedy loop in plain
-PyTorch. Both give the same keep set bit for bit.
+hand-written kernel (``csrc/nms.cu``: an IoU bitmask of every pair in
+parallel, then a one-warp greedy scan per image) and a CPU tensor to
+``greedy_nms_keep_plain``, the same greedy loop in plain PyTorch. Both
+give the same keep set bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import Tuple
 
@@ -32,10 +34,29 @@ SOURCE = os.path.join(CSRC_DIR, "nms.cu")
 # multiply and add do (the source also spells each rounding out)
 LIB = NativeLib(
     SOURCE, ["nvcc"] + NVCC_FLAGS + ["-fmad=false"],
-    {**cuda_signatures(yunet_greedy_nms=[_P, _P, _I, _I, ctypes.c_float,
-                                         _P, _P]),
-     "yunet_nms_smem_bytes": (ctypes.c_size_t, [_I])})
-MAX_SMEM = 227 * 1024  # a block's dynamic shared memory limit on Hopper
+    cuda_signatures(
+        yunet_greedy_nms=[_P, _P, _I, _I, ctypes.c_float, _P, _P, _I, _P],
+        # each launch alone, for timing them apart (chip_smoke.py)
+        yunet_nms_mask=[_P, _P, _I, _I, ctypes.c_float, _P, _I, _P],
+        yunet_nms_scan=[_P, _I, _I, _P, _P, _I, _P]))
+# the most candidates an image the kernel takes (csrc/nms.cu:kMaxK; the
+# scan's lanes hold at most 10 removed words each): every K that the
+# earlier one-block-per-image kernel took, 24 B a candidate in 227 KB
+MAX_K = 9685
+
+
+def mask_words(k: int) -> int:
+    """u32 words in a row of the kernel's scratch mask: ceil(k/32) rounded
+    up to a multiple of 4, so that the scan copies rows 16 B at a time."""
+    return ((k + 31) // 32 + 3) // 4 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_point():
+    """(library, yunet_greedy_nms), resolved once: no lock or attribute
+    lookup on the per-call path."""
+    lib = LIB.get()
+    return lib, lib.yunet_greedy_nms
 
 
 def greedy_nms_keep_plain(boxes: torch.Tensor, counts: torch.Tensor,
@@ -65,7 +86,11 @@ def greedy_nms_keep_plain(boxes: torch.Tensor, counts: torch.Tensor,
 def greedy_nms_keep(boxes: torch.Tensor, counts: torch.Tensor,
                     iou_thr: float) -> torch.Tensor:
     """Greedy suppression: the plain version for a CPU tensor, the CUDA
-    kernel for a CUDA tensor (no fallback between them)."""
+    kernel for a CUDA tensor (no fallback between them).
+
+    On the card the call is two launches (the mask and the scan) from one
+    ctypes call, into a (B, K) bool keep and a (B, K, mask_words(K)) i32
+    scratch mask that the kernel fills only where it needs."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or \
             counts.shape != boxes.shape[:1]:
         raise ValueError(f"boxes {tuple(boxes.shape)} / counts "
@@ -81,19 +106,21 @@ def greedy_nms_keep(boxes: torch.Tensor, counts: torch.Tensor,
         raise ValueError("greedy_nms_keep: boxes and counts must be "
                          "contiguous on one device")
     bsz, k, _ = boxes.shape
-    lib = LIB.get()
-    if lib.yunet_nms_smem_bytes(k) > MAX_SMEM:
-        raise ValueError(f"greedy_nms_keep: {k} candidates per image do "
-                         "not fit one block's shared memory")
-    keep = torch.empty((bsz, k), dtype=torch.uint8, device=boxes.device)
-    if bsz:
-        with torch.cuda.device(boxes.device):
-            code = lib.yunet_greedy_nms(
-                boxes.data_ptr(), counts.data_ptr(), bsz, k, float(iou_thr),
-                keep.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if k > MAX_K:
+        raise ValueError(f"greedy_nms_keep: {k} candidates per image; the "
+                         f"kernel takes at most {MAX_K}")
+    dev = boxes.device
+    keep = torch.empty((bsz, k), dtype=torch.bool, device=dev)
+    if bsz and k:
+        mask = torch.empty((bsz, k, mask_words(k)), dtype=torch.int32,
+                           device=dev)
+        lib, launch = _entry_point()
+        code = launch(boxes.data_ptr(), counts.data_ptr(), bsz, k,
+                      float(iou_thr), mask.data_ptr(), keep.data_ptr(),
+                      dev.index, torch.cuda.current_stream(dev).cuda_stream)
         check_cuda_status(lib, code, "greedy_nms_keep")
-        greedy_nms_keep.launches += 1
-    return keep.bool()
+        greedy_nms_keep.launches += 2        # the mask and the scan
+    return keep
 
 
 greedy_nms_keep.launches = 0
