@@ -13,7 +13,10 @@ trunk, streamed SimOTA kernel, from the same weights, on a seeded
 synthetic face batch; and the same step with train.fused_kernels, every
 ConvDPUnit through the fused forward and backward kernels) it runs 5
 warm-up calls, then 20 calls under torch.profiler, then 20 calls without
-it. It prints the wall time per call (profiled and unprofiled), the sum
+it. The WIDER sweeps (Detector.detect_sweep as the test_widerface CLI
+drives it: yunet_n, r04 EMA weights, bf16, unfused, over chip_smoke.py's
+64-image split from the decoded cache, mode 0 and mode 2, device and host
+NMS) get 1 warm-up sweep, 2 profiled and 2 unprofiled. It prints the wall time per call (profiled and unprofiled), the sum
 of device kernel time per call, the busy share (device kernel time over
 the profiled wall), the top device kernels and the port's own kernels
 summed over their instantiations, and for the serving and detect
@@ -68,25 +71,25 @@ def port_kernels(rows):
     return out
 
 
-def profile_program(fn):
+def profile_program(fn, calls=CALLS, warmup=WARMUP):
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(CALLS):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / CALLS * 1e3
+        wall = (time.perf_counter() - t0) / calls * 1e3
     t0 = time.perf_counter()
-    for _ in range(CALLS):
+    for _ in range(calls):
         fn()
     torch.cuda.synchronize()
-    bare = (time.perf_counter() - t0) / CALLS * 1e3
-    rows = device_rows(prof, CALLS)
+    bare = (time.perf_counter() - t0) / calls * 1e3
+    rows = device_rows(prof, calls)
     if not rows:
         raise RuntimeError("the profile holds no device kernel time")
     busy = sum(r[1] for r in rows)
@@ -138,9 +141,29 @@ def main() -> int:
             device=cs.DEV, state_dict=sd)
         step = make_train_step(c, ts.model, opt, img_size=c.data.img_size)
         progs[name] = lambda st=step, t=ts: st(t, tb)
+    # the WIDER sweeps
+    from yunet_tpu_torch.data.cache import load_cached
+    from yunet_tpu_torch.data.labelv2 import parse_labelv2
+    ann, cache, _ = cs.wider_split()
+    entries = [((lambda r=r: load_cached(cache, r.filename)),
+                (r.height, r.width))
+               for r in parse_labelv2(ann, test_mode=True)]
+    udet = init_detector("yunet_n", cs.FIXTURE, device=cs.DEV)
+    sweeps = {}
+    for mode, wmode in ((0, (640, 640)), (2, "ORIGIN")):
+        for nms in ("device", "host"):
+            sweeps[f"wider_mode{mode}_{nms}_nms"] = (
+                lambda m=wmode, d=nms == "device": udet.detect_sweep(
+                    entries, m, pad_divisor=32, use_device_nms=d))
     out = {"device": smi, "calls": CALLS}
-    for name, fn in progs.items():
-        r = profile_program(fn)
+    for name, fn in {**progs, **sweeps}.items():
+        r = (profile_program(fn, calls=2, warmup=1) if name in sweeps
+             else profile_program(fn))
+        if name in sweeps:
+            r["img_per_s_unprofiled"] = len(entries) / (
+                r["wall_ms_unprofiled"] / 1e3)
+            cs.log(f"== {name}: {r['img_per_s_unprofiled']:.2f} img/s "
+                   "unprofiled")
         if name in nms_counts:
             r["nms_counts"] = nms_counts[name]
             cs.log(f"== {name}: NMS candidates an image {nms_counts[name]}")

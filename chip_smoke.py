@@ -12,9 +12,13 @@ width, trained r04 EMA weights from tests/fixtures/r04_ema.npz) and the
 training path (10 steps of yunet_n at 640^2 b16, bf16, from the same
 weights, on seeded synthetic face batches) through the user entry points,
 the same training path with train.fused_kernels (every ConvDPUnit through
-the fused forward kernel and its hand-written backward) and the
-channels-major ConvDP bench (yunet_tpu_torch.tools.bench_convdp_cm),
-shows through the launch counters that each path ran its kernels, and
+the fused forward kernel and its hand-written backward), the
+channels-major ConvDP bench (yunet_tpu_torch.tools.bench_convdp_cm) and
+the WIDER evaluation (python -m yunet_tpu_torch.tools.test_widerface in
+modes 0 and 2 with device and host NMS over a seeded 64-image split read
+from the decoded .npy cache, then a fused Detector's sweep, TTA and
+warmup), shows through the launch counters that each path ran its
+kernels, and
 times kernels, their plain versions, library yardsticks and the paths
 with CUDA events. Any failed check raises, and the script exits
 non-zero. There is no CPU path: without a CUDA device it exits non-zero
@@ -27,7 +31,6 @@ them, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
-import functools
 import json
 import os
 import statistics
@@ -133,18 +136,20 @@ def clustered_boxes(rng, n, size):
     return np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
 
 
-def face_sample(rng, h, w, n_faces):
+def face_sample(rng, h, w, n_faces, sizes=None):
     """A noisy background with simple face renders (skin-tone ellipse,
     dark eyes, mouth), drawn with numpy in the style of
     tools/make_synth_wider.py, on which the r04 weights were trained.
     Returns (image (h, w, 3) uint8, boxes (n, 4) xyxy, keypoints (n, 5, 3):
     eyes, nose, mouth corners, visibility 1). Each face is drawn inside
-    its own window, with the same pixels as a whole-image draw."""
+    its own window, with the same pixels as a whole-image draw. A face's
+    box is as high as its size: drawn from [24, min(h, w) / 3], or taken
+    from ``sizes`` (n_faces of them)."""
     img = rng.randint(40, 200, (h, w, 3)).astype(np.float32)
     img = (img + np.roll(img, 1, 0) + np.roll(img, 1, 1)) / 3
     boxes, kps = [], []
-    for _ in range(n_faces):
-        s = rng.uniform(24, min(h, w) / 3)
+    for i in range(n_faces):
+        s = rng.uniform(24, min(h, w) / 3) if sizes is None else sizes[i]
         cx, cy = rng.uniform(s, w - s), rng.uniform(s, h - s)
         y0, y1 = max(int(cy - 0.6 * s) - 2, 0), min(int(cy + 0.6 * s) + 3, h)
         x0, x1 = max(int(cx - 0.5 * s) - 2, 0), min(int(cx + 0.5 * s) + 3, w)
@@ -259,8 +264,7 @@ def phase_build(libs=None):
                     "simota.cu": simota.LIB,
                     "convdp_bwd.cu": convdp_train.LIB,
                     "convdp_cm.cu": convdp_cm.LIB,
-                    "host_nms.cpp": native.LIB,
-                    "nms_serial.cu": serial_nms_lib()}
+                    "host_nms.cpp": native.LIB}
 
     def build(lib):
         t0 = time.perf_counter()
@@ -313,92 +317,42 @@ def bound_ms(nbytes, ops, peak):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-SERIAL_NMS = os.path.join(ROOT, "yunet_tpu_torch", "tools", "nms_serial.cu")
-
-
-@functools.lru_cache(maxsize=None)
-def serial_nms_lib():
-    """The serial one-block-per-image NMS (tools/nms_serial.cu), the
-    yardstick phase_nms times beside the kernel."""
-    return nms_build(SERIAL_NMS)
-
-
 def nms_build(path):
-    """A NativeLib of a greedy-NMS source, built with csrc/nms.cu's flags.
-    A source with the serial kernel's C interface (yunet_greedy_nms(boxes,
-    counts, batch, k, thr, keep, stream) and yunet_nms_smem_bytes, as
-    tools/nms_serial.cu) is bound as such; any other with csrc/nms.cu's."""
-    import ctypes
+    """A NativeLib of another greedy-NMS source with csrc/nms.cu's C
+    interface (a scratch copy of an earlier version or a variant), built
+    with csrc/nms.cu's flags."""
     from yunet_tpu_torch.ops import nms
-    from yunet_tpu_torch.ops._build import NativeLib, cuda_signatures
+    from yunet_tpu_torch.ops._build import NativeLib
     with open(path, "rb") as f:
         src = f.read()
-    serial = b"yunet_nms_smem_bytes" in src
     # csrc/nms.cu's entry points that this source has
     sigs = {name: sig for name, sig in nms.LIB.signatures.items()
             if name.encode() in src}
-    if serial:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        sigs = {**cuda_signatures(yunet_greedy_nms=[
-            p, p, i, i, ctypes.c_float, p, p]),
-            "yunet_nms_smem_bytes": (ctypes.c_size_t, [i])}
     return NativeLib(os.path.abspath(path), nms.LIB.compiler, sigs)
 
 
 def nms_keep_fn(native):
     """greedy_nms_keep driven through another build (a NativeLib from
-    nms_build). For a serial-interface build it is the wrapper that build
-    had, step by step (the input checks, the library under its lock, a
-    ctypes query of the shared memory, a u8 keep, the launch in the
-    device's context, the status check, a .bool() cast), so that its host
-    time is timed too; any other build runs as greedy_nms_keep runs
-    csrc/nms.cu, without the input checks."""
+    nms_build), as greedy_nms_keep runs csrc/nms.cu, without the input
+    checks."""
     import torch
     from yunet_tpu_torch.ops import nms
     from yunet_tpu_torch.ops._build import check_cuda_status
-    if "yunet_nms_smem_bytes" not in native.signatures:
-        lib = native.get()
-
-        def bitmask_keep(boxes, counts, iou_thr):
-            bsz, k, _ = boxes.shape
-            dev = boxes.device
-            keep = torch.empty((bsz, k), dtype=torch.bool, device=dev)
-            if bsz and k:
-                mask = torch.empty((bsz, k, nms.mask_words(k)),
-                                   dtype=torch.int32, device=dev)
-                check_cuda_status(lib, lib.yunet_greedy_nms(
-                    boxes.data_ptr(), counts.data_ptr(), bsz, k,
-                    float(iou_thr), mask.data_ptr(), keep.data_ptr(),
-                    dev.index, torch.cuda.current_stream(dev).cuda_stream),
-                    "greedy NMS build")
-            return keep
-        return bitmask_keep
+    lib = native.get()
 
     def keep_fn(boxes, counts, iou_thr):
-        if boxes.dim() != 3 or boxes.shape[-1] != 4 or \
-                counts.shape != boxes.shape[:1]:
-            raise ValueError("want boxes (B, K, 4) and counts (B,)")
-        if boxes.device.type != "cuda":
-            raise ValueError(f"no kernel for {boxes.device}")
-        if boxes.dtype != torch.float32 or counts.dtype != torch.int32:
-            raise TypeError("boxes must be f32 and counts i32")
-        if counts.device != boxes.device or not (
-                boxes.is_contiguous() and counts.is_contiguous()):
-            raise ValueError("boxes and counts must be contiguous on one "
-                             "device")
         bsz, k, _ = boxes.shape
-        lib = native.get()
-        if lib.yunet_nms_smem_bytes(k) > 227 * 1024:
-            raise ValueError(f"{k} candidates do not fit a block")
-        keep = torch.empty((bsz, k), dtype=torch.uint8, device=boxes.device)
-        if bsz:
-            with torch.cuda.device(boxes.device):
-                code = lib.yunet_greedy_nms(
-                    boxes.data_ptr(), counts.data_ptr(), bsz, k,
-                    float(iou_thr), keep.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream)
-            check_cuda_status(lib, code, "serial greedy NMS")
-        return keep.bool()
+        dev = boxes.device
+        keep = torch.empty((bsz, k), dtype=torch.bool, device=dev)
+        if bsz and k:
+            mask = torch.empty((bsz, k, nms.mask_words(k)),
+                               dtype=torch.int32, device=dev)
+            check_cuda_status(lib, lib.yunet_greedy_nms(
+                boxes.data_ptr(), counts.data_ptr(), bsz, k,
+                float(iou_thr), mask.data_ptr(), keep.data_ptr(),
+                dev.index, torch.cuda.current_stream(dev).cuda_stream),
+                "greedy NMS build")
+        return keep
     return keep_fn
 
 
@@ -977,6 +931,372 @@ def phase_times(fdet):
             extra = f" ({bsz / (min(v) / 1000):.0f} img/s at the best)"
         log(f"[time] {key}: {v[0]:.4f} / {v[1]:.4f} ms{extra}")
     torch.cuda.synchronize()
+
+
+# -- the WIDER evaluation path -------------------------------------------------
+
+WIDER_DIR = os.path.join(ROOT, "work_dirs", "chip_wider")
+WIDER_IMAGES, WIDER_EVENTS = 64, 4
+WIDER_STALE = 5            # the image whose labelv2 header is stale
+
+
+def wider_split(root=WIDER_DIR, n_images=WIDER_IMAGES, seed=5):
+    """A WIDER-val-shaped split drawn with face_sample, numpy only, under
+    root: n_images over WIDER_EVENTS events, 1024 wide and 576-1536 high,
+    3-24 faces an image with heights log-uniform from 8 px to a third of
+    the short side (so easy, medium and hard differ), one face in 20
+    marked ignored. Writes labelv2.txt (image WIDER_STALE's header says
+    64 px more than its height, so the origin-size sweep runs it solo),
+    the decoded .npy cache at data/cache.py's layout (root/cache) and the
+    GT .mat files (root/gt, the port's write_gt_mats). Returns (labelv2
+    path, cache dir, GT dir)."""
+    import shutil
+    from yunet_tpu_torch.data.cache import cache_path
+    from yunet_tpu_torch.tools.make_synth_wider import write_gt_mats
+    shutil.rmtree(root, ignore_errors=True)
+    cache, gt = os.path.join(root, "cache"), os.path.join(root, "gt")
+    rng = np.random.RandomState(seed)
+    lines, per_event = [], {}
+    for i in range(n_images):
+        event = f"{i % WIDER_EVENTS}--Chip"
+        stem = f"chip_{i:04d}"
+        h, w = int(rng.randint(576, 1537)), 1024
+        n = int(rng.randint(3, 25))
+        sizes = np.exp(rng.uniform(np.log(8), np.log(min(h, w) / 3), n))
+        img, boxes, kps = face_sample(rng, h, w, n, sizes=sizes)
+        ign = rng.uniform(size=n) < 0.05
+        path = cache_path(cache, f"{event}/{stem}.jpg")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, img)
+        lines.append(f"# {event}/{stem}.jpg {w} "
+                     f"{h + 64 if i == WIDER_STALE else h}")
+        for b, k, ig in zip(boxes, kps, ign):
+            vals = " ".join(f"{v:.1f}" for v in b)
+            lines.append(vals + " 1" if ig else vals + " " + " ".join(
+                f"{x:.1f} {y:.1f} 1" for x, y, _ in k))
+        per_event.setdefault(event, []).append((stem, boxes, kps, ign))
+    ann = os.path.join(root, "labelv2.txt")
+    with open(ann, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    write_gt_mats(gt, per_event)
+    return ann, cache, gt
+
+
+class _HostClock:
+    """Host time spent in wrapped calls, per label. Wrap with
+    ``wrap(owner, attr, label, sync)``; ``sync`` ends the call with
+    torch.cuda.synchronize() (the device program's work is then inside its
+    label). Calls nested in a timed call of the same thread are not
+    counted again. ``restore()`` puts every attribute back."""
+
+    def __init__(self):
+        import threading
+        self.secs, self._saved = {}, []
+        self._local = threading.local()
+
+    def wrap(self, owner, attr, label, sync=False):
+        import torch
+        fn = getattr(owner, attr)
+        self._saved.append((owner, attr, fn))
+        self.secs.setdefault(label, 0.0)
+        local = self._local
+
+        def timed(*a, **kw):
+            if getattr(local, "busy", False):
+                return fn(*a, **kw)
+            local.busy = True
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                local.busy = False
+                self.secs[label] += time.perf_counter() - t0
+        setattr(owner, attr, timed)
+
+    def restore(self):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        self._saved = []
+
+
+def _sorted_dets(r):
+    """A result's (bboxes, kps) rows in one order (score, then corners)."""
+    b = r["bboxes"]
+    order = np.lexsort(tuple(b[:, j] for j in range(4)) + (-b[:, 4],))
+    return b[order], r["kps"][order]
+
+
+def wider_sweep(mode, device_nms, ann, cache, gt, clock=None):
+    """python -m yunet_tpu_torch.tools.test_widerface on the split, through
+    its main(): yunet_n, r04 EMA weights, bf16, on the card. Returns
+    {aps, aps_plain (the same predictions through _wider_match_numpy),
+    results (per image, input order), stats (last_sweep_stats), secs (the
+    sweep's wall), launches (the counters over the run)}."""
+    import torch
+    from yunet_tpu_torch import native
+    from yunet_tpu_torch.eval import detect as detect_mod
+    from yunet_tpu_torch.eval import widerface
+    from yunet_tpu_torch.eval.detect import Detector
+    from yunet_tpu_torch.tools import test_widerface as cli
+    rec = {}
+    sweep = Detector.detect_sweep
+
+    def timed_sweep(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sweep(self, *a, **kw)
+        torch.cuda.synchronize()
+        rec.update(secs=time.perf_counter() - t0, results=out,
+                   stats=dict(self.last_sweep_stats))
+        return out
+
+    evaluate = cli.wider_evaluation
+
+    def both_matchers(pred, gt_dir, **kw):
+        aps = evaluate(pred, gt_dir, **kw)
+        real = widerface.native.wider_match
+        widerface.native.wider_match = native._wider_match_numpy
+        try:
+            rec["aps_plain"] = evaluate(pred, gt_dir)
+        finally:
+            widerface.native.wider_match = real
+        return aps
+
+    clock = clock or _HostClock()
+    Detector.detect_sweep = timed_sweep
+    cli.wider_evaluation = both_matchers
+    clock.wrap(cli, "load_cached", "load (prefetch thread)")
+    clock.wrap(detect_mod, "resize", "resize")
+    clock.wrap(Detector, "_input", "put")
+    for prog in ("serve_packed", "detect_packed", "raw"):
+        clock.wrap(Detector, prog, "device program", sync=True)
+    argv = ["yunet_n", FIXTURE, "--mode", str(mode), "--ann", ann,
+            "--gt-dir", gt, "--cache-dir", cache, "--bucket", "32",
+            "--eval-log", os.path.join(WIDER_DIR, "eval.log")]
+    reset_launch_counts()
+    try:
+        rec["aps"] = cli.main(argv + (["--device-nms"] if device_nms
+                                      else []))
+    finally:
+        Detector.detect_sweep = sweep
+        cli.wider_evaluation = evaluate
+        clock.restore()
+    torch.cuda.synchronize()
+    rec["launches"] = launch_counts()
+    return rec
+
+
+def phase_wider():
+    """The WIDER evaluation path on the card: the port's test_widerface
+    CLI over wider_split() in mode 0 (640x640 letterbox, the torch resize)
+    and mode 2 (origin size, /32 buckets), each with device and host NMS,
+    then a fused bf16 Detector's detect_sweep, detect_tta(flip=True) and
+    warmup. Checks (each raises): device-NMS detections equal host-NMS
+    ones for every image below the cap, APs equal when none saturated;
+    the native matcher's APs equal the plain matcher's; the NMS kernel
+    ran on every device-NMS sweep and on no host one; the stale header
+    ran solo in mode 2 (in mode 0 every image shares the square canvas);
+    APs finite in [0, 1]; 29 fused ConvDP launches, all on the bf16
+    route, per fused solo detect; a fused bf16 Detector's detections pair
+    with those of the same Detector with the ConvDP kernel's plain version
+    in its place, and a fused f32 Detector's with an unfused f32 one's
+    (phase_slice's tolerances). Each configuration runs twice, the
+    second timed: img/s, and the sweep's host time split into the device
+    program (issue to finish), the resize, the host->device put, image
+    loads on the prefetch thread, and the rest. Returns ({kernel:
+    launches on the path}, {configuration: numbers})."""
+    import torch
+    from yunet_tpu_torch.apis import init_detector
+    from yunet_tpu_torch.data.cache import load_cached
+    from yunet_tpu_torch.data.labelv2 import parse_labelv2
+    from yunet_tpu_torch.eval.detect import Detector
+
+    t0 = time.perf_counter()
+    ann, cache, gt = wider_split()
+    log(f"[wider] split: {WIDER_IMAGES} images, 1024 wide, 576-1536 high, "
+        f"{time.perf_counter() - t0:.1f} s to draw and write")
+    launches = {"greedy_nms": 0}
+    report = {}
+    for mode in (0, 2):
+        runs = {}
+        for device_nms in (True, False, True, False):
+            clock = _HostClock()
+            r = wider_sweep(mode, device_nms, ann, cache, gt, clock)
+            r["clock"] = clock.secs
+            runs[device_nms] = r                 # the second run is kept
+        for device_nms, r in runs.items():
+            name = f"mode{mode}_{'device' if device_nms else 'host'}_nms"
+            lc, st, aps = r["launches"], r["stats"], r["aps"]
+            if device_nms != (lc["greedy_nms"] > 0):
+                raise AssertionError(f"{name}: NMS kernel launches "
+                                     f"{lc['greedy_nms']}")
+            if device_nms:
+                launches["greedy_nms"] += lc["greedy_nms"]
+            if lc["fused_conv_dp"]:
+                raise AssertionError(f"{name}: an unfused Detector launched "
+                                     "the ConvDP kernel")
+            if st["misfit_solo"] != (1 if mode == 2 else 0):
+                raise AssertionError(f"{name}: misfit_solo "
+                                     f"{st['misfit_solo']}")
+            if not all(np.isfinite(a) and 0 <= a <= 1 for a in aps):
+                raise AssertionError(f"{name}: APs {aps}")
+            if r["aps_plain"] != aps:
+                raise AssertionError(f"{name}: native matcher APs {aps} != "
+                                     f"plain {r['aps_plain']}")
+            c = r["clock"]
+            host = {k: c[k] for k in ("device program", "resize", "put",
+                                      "load (prefetch thread)")}
+            other = r["secs"] - sum(v for k, v in host.items()
+                                    if "prefetch" not in k)
+            report[name] = {
+                "aps": aps, "img_per_s": WIDER_IMAGES / r["secs"],
+                "sweep_s": r["secs"], "batches": st["batches"],
+                "misfit_solo": st["misfit_solo"],
+                "devnms_saturated": st["devnms_saturated"],
+                "nms_launches": lc["greedy_nms"],
+                **{k.split(" ")[0] + "_s": v for k, v in host.items()},
+                "other_host_s": other}
+            log(f"[wider] {name}: APs easy/medium/hard "
+                f"{aps[0]:.4f} {aps[1]:.4f} {aps[2]:.4f} (plain matcher "
+                f"equal); {WIDER_IMAGES} images in {r['secs']:.4f} s = "
+                f"{WIDER_IMAGES / r['secs']:.2f} img/s; {st['batches']} "
+                f"batches, {st['misfit_solo']} solo, "
+                f"{st['devnms_saturated']} saturated, NMS launches "
+                f"{lc['greedy_nms']}")
+            log(f"[wider] {name}: device program {host['device program']:.4f}"
+                f" s, resize {host['resize']:.4f} s "
+                f"({host['resize'] / (r['secs'] - host['device program']):.1%}"
+                f" of host time), put {host['put']:.4f} s, other host "
+                f"{other:.4f} s; loads {host['load (prefetch thread)']:.4f} "
+                "s on the prefetch thread")
+        dev, hst = runs[True], runs[False]
+        sat = dev["stats"]["devnms_saturated"]
+        differ = 0
+        for a, b in zip(dev["results"], hst["results"]):
+            (ab, ak), (bb, bk) = _sorted_dets(a), _sorted_dets(b)
+            if not (np.array_equal(ab, bb) and np.array_equal(ak, bk)):
+                differ += 1
+        if differ > sat or (sat == 0 and dev["aps"] != hst["aps"]):
+            raise AssertionError(f"mode {mode}: {differ} images differ "
+                                 f"between device and host NMS, {sat} "
+                                 "saturated the cap")
+        log(f"[wider] mode {mode}: device NMS == host NMS on "
+            f"{WIDER_IMAGES - differ} of {WIDER_IMAGES} images ({sat} "
+            f"saturated the cap); APs {'equal' if sat == 0 else 'not held'}")
+
+    # the resize's integer ops give the same bytes on the card as on the
+    # host; its time on each for the letterbox of mode 0
+    from yunet_tpu_torch.eval.detect import canvas_shape
+    from yunet_tpu_torch.ops.resize import resize
+    recs = parse_labelv2(ann, test_mode=True)[:8]
+    host_ms, card_ms = [], []
+    for r in recs:
+        img = np.ascontiguousarray(load_cached(cache, r.filename))
+        h, w = img.shape[:2]
+        ch, cw = canvas_shape(h, w, (640, 640))
+        # resize_img's letterbox arithmetic
+        if h / w > ch / cw:
+            size = (int(ch / (h / w)), ch)
+        else:
+            size = (cw, int(cw * (h / w)))
+        cpu = torch.from_numpy(img)
+        t0 = time.perf_counter()
+        want = resize(cpu, size)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        gpu = cpu.to(DEV)
+        got = resize(gpu, size)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"resize on the card != on the host, "
+                                 f"{img.shape} -> {size}")
+        card_ms.append(cuda_ms(lambda: resize(gpu, size), warmup=1,
+                               iters=5, windows=3))
+    log(f"[wider] resize of {len(recs)} images to the 640^2 letterbox: "
+        f"card bytes == host bytes; host {statistics.median(host_ms):.4f} "
+        f"ms, card {statistics.median(card_ms):.4f} ms an image (medians)")
+
+    # a fused bf16 Detector: a sweep with the stale image, TTA, warmup. In
+    # bf16 the folded trunk and the unfused one round at other places (BN
+    # folded into bf16 weights): on these images a batch that runs no
+    # kernel at all already moves a score by more than phase_slice's
+    # 0.05. So the kernel is held against its plain version in the same
+    # fused bf16 Detector (phase_slice's bf16 tolerances), and the fused
+    # path against the unfused one in f32 (phase_slice's f32 tolerances,
+    # the same detection counts)
+    from yunet_tpu_torch.models import fused as fused_mod
+    from yunet_tpu_torch.ops.convdp import fused_conv_dp_plain
+    recs = parse_labelv2(ann, test_mode=True)[:6]
+    entries = [((lambda r=r: load_cached(cache, r.filename)),
+                (r.height, r.width)) for r in recs]
+    udet = init_detector("yunet_n", FIXTURE, device=DEV)
+    fdet = Detector(udet.cfg, udet.model, device=DEV, fused=True)
+    f32 = [Detector(udet.cfg, udet.model, device=DEV, dtype=torch.float32,
+                    fused=fused) for fused in (True, False)]
+    img = np.ascontiguousarray(load_cached(cache, recs[0].filename))
+    steps = [("detect_sweep", 1, lambda d: d.detect_sweep(
+                 entries, "ORIGIN", use_device_nms=True)),
+             ("detect_tta", 2, lambda d: [d.detect_tta(img, flip=True)]),
+             ("warmup", 1, lambda d: d.warmup([img.shape[:2]]))]
+    fused_launches = {"fused_conv_dp": 0, "fused_conv_dp_mma": 0}
+    for what, solo, run in steps:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = run(fdet) or []
+        torch.cuda.synchronize()
+        lc = launch_counts()
+        if lc["fused_conv_dp"] != 29 * solo or \
+                lc["fused_conv_dp_mma"] != 29 * solo:
+            raise AssertionError(f"fused {what}: ConvDP launches {lc}, want "
+                                 f"{29 * solo}, all on the bf16 route")
+        for k in fused_launches:
+            fused_launches[k] += lc[k]
+        kernel = fused_mod.fused_conv_dp
+        fused_mod.fused_conv_dp = fused_conv_dp_plain
+        try:
+            plain = run(fdet) or []
+        finally:
+            fused_mod.fused_conv_dp = kernel
+        for g, w in zip(got, plain):
+            _match(g, w, atol=2.0, rtol=2e-2, score_atol=0.05,
+                   min_score=0.1)
+        for g, w in zip(run(f32[0]) or [], run(f32[1]) or []):
+            _match(g, w, atol=1e-2, rtol=1e-4, score_atol=1e-4)
+        off = 0
+        for g, w in zip(got, run(udet) or []):
+            try:
+                _match(g, w, atol=2.0, rtol=2e-2, score_atol=0.05,
+                       min_score=0.1)
+            except AssertionError:
+                off += 1
+        log(f"[wider] fused {what}: {lc['fused_conv_dp']} ConvDP launches "
+            f"({solo} solo detect(s), all on the bf16 route); bf16 "
+            "detections pair with the plain ConvDP's, f32 fused with f32 "
+            f"unfused; bf16 fused against bf16 unfused: {off} of "
+            f"{len(got)} results outside phase_slice's bf16 tolerances")
+    launches["fused_conv_dp"] = fused_launches["fused_conv_dp"]
+    launches["fused_conv_dp_mma"] = fused_launches["fused_conv_dp_mma"]
+    return launches, report
+
+
+def wider_only():
+    """phase_wider alone, for quick work on the WIDER path:
+    python3 -c "import chip_smoke as s; s.wider_only()" from the
+    repository root. Builds only the kernels the path runs (csrc/nms.cu,
+    csrc/convdp.cu) and the host routines (csrc/host_nms.cpp)."""
+    import torch
+    from yunet_tpu_torch import native
+    from yunet_tpu_torch.ops import convdp, nms
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    smi = nvidia_smi_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} | {smi}")
+    phase_build({"nms.cu": nms.LIB, "convdp.cu": convdp.LIB,
+                 "host_nms.cpp": native.LIB})
+    launches, report = phase_wider()
+    log(f"[wider] launches {launches}")
+    log(f"[wider] {smi}: " + json.dumps(report))
 
 
 def _to_device(batch):
@@ -1767,20 +2087,19 @@ def convdp_cm_only():
 def nms_only(*others):
     """phase_nms alone, for quick work on the NMS kernel:
     python3 -c "import chip_smoke as s; s.nms_only()" from the repository
-    root. Builds only csrc/nms.cu and the serial yardstick
-    tools/nms_serial.cu. Each of others is the path of another NMS source
-    (a scratch copy of an earlier version or a variant, in a directory
-    .gitignore lists), with either C interface (nms_build): it is built
-    with the same flags, held equal to the plain version on every case
-    and timed beside the kernel, alone (phase_nms) and inside the serving
-    and detect programs (phase_nms_walls)."""
+    root. Builds only csrc/nms.cu. Each of others is the path of another
+    NMS source with csrc/nms.cu's C interface (a scratch copy of an
+    earlier version or a variant, in a directory .gitignore lists, e.g.
+    git show HEAD~1:yunet_tpu_torch/csrc/nms.cu > work_dirs/p/nms.cu): it
+    is built with the same flags, held equal to the plain version on every
+    case and timed beside the kernel, alone (phase_nms) and inside the
+    serving and detect programs (phase_nms_walls)."""
     import torch
     from yunet_tpu_torch.ops import nms
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     log(f"[device] {torch.cuda.get_device_name(0)} | {nvidia_smi_line()}")
-    builds = {"serial": serial_nms_lib(),
-              **{path: nms_build(path) for path in others}}
+    builds = {path: nms_build(path) for path in others}
     phase_build({"nms.cu": nms.LIB, **builds})
     keep_fns = {name: nms_keep_fn(lib) for name, lib in builds.items()}
     phase_nms(keep_fns, builds)
@@ -1877,7 +2196,7 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     phase_build()
-    nms_err, nms_t = phase_nms({"serial": nms_keep_fn(serial_nms_lib())})
+    nms_err, nms_t = phase_nms()
     cfg, sd, model, folded = load_model()
     conv_err, conv_t = phase_convdp(folded, cfg)
     simota_err, simota_t = phase_simota(model, cfg)
@@ -1888,17 +2207,21 @@ def main() -> int:
     cm_err, (cm_launches, cm_mma), cm_t = phase_convdp_cm()
     phase_times(fdet)
     phase_train_times(sd, batches[0])
+    wider_launches, wider_report = phase_wider()
+    log(f"[wider] {smi}: " + json.dumps(wider_report))
 
     kernels = [
         {"name": "greedy_nms", "route": "cuda",
          "source": "yunet_tpu_torch/csrc/nms.cu",
          "replaces": "yunet_tpu/ops/nms_pallas.py:78",
          "also_replaces": "yunet_tpu/ops/nms_pallas.py:40",
-         "launches": serve_launches["greedy_nms"], "max_abs_err": nms_err,
+         "launches": serve_launches["greedy_nms"],
+         # the WIDER sweeps with --device-nms, mode 0 and mode 2
+         "launches_wider": wider_launches["greedy_nms"],
+         "max_abs_err": nms_err,
          # no single PyTorch call computes greedy NMS (no torchvision)
          "library_ms": None,
-         # the serving path's b16 shape; serial_*: the one-block-per-image
-         # kernel it replaced (tools/nms_serial.cu), timed in this run
+         # the serving path's b16 shape
          **nms_t["b16_k750_n300"], "shapes": nms_t},
         {"name": "fused_conv_dp", "route": "cuda",
          "source": "yunet_tpu_torch/csrc/convdp.cu",
@@ -1906,6 +2229,10 @@ def main() -> int:
          "launches": serve_launches["fused_conv_dp"],
          # of those, the launches of the bf16 (tensor-core) route
          "launches_mma": serve_launches["fused_conv_dp_mma"],
+         # a fused Detector's solo detects on the WIDER path: the sweep's
+         # stale image, detect_tta(flip=True) and warmup
+         "launches_wider": wider_launches["fused_conv_dp"],
+         "launches_mma_wider": wider_launches["fused_conv_dp_mma"],
          # also the forward of fused_pw_dw on the fused training path
          "also_runs_on": "training path with train.fused_kernels",
          "launches_fused_training": fused_launches["fused_conv_dp"],

@@ -124,7 +124,8 @@ def test_init_detector_and_inference_detector():
     _same(one, two[1])
     timings = {}
     _same(det.detect(img, timings=timings), one)
-    assert set(timings) == {"preproc", "put", "device", "post"}
+    assert set(timings) == {"preproc", "put", "dispatch", "device_readback",
+                            "post"}
     assert all(v >= 0 for v in timings.values())
     # bf16 trunk: same detections within bf16 rounding
     det16 = init_detector("yunet_n", FIXTURE, device="cpu")
@@ -133,6 +134,19 @@ def test_init_detector_and_inference_detector():
                - one["bboxes"].shape[0]) <= 1
     with pytest.raises(ValueError):
         det.detect(img, score_thr=0.001, use_device_nms=True)
+
+
+@pytest.mark.parametrize("use_device_nms", [False, True])
+def test_detect_timings_keys_match_jax(detectors, use_device_nms):
+    """detect(timings=...) fills JAX's keys in both NMS branches."""
+    jdet, tdet = detectors[False]
+    img = _img(64, 96, 11)
+    want, got = {}, {}
+    jdet.detect(img, use_device_nms=use_device_nms, timings=want)
+    tdet.detect(img, use_device_nms=use_device_nms, timings=got)
+    assert set(got) == set(want) == {"preproc", "put", "dispatch",
+                                     "device_readback", "post"}
+    assert all(v >= 0 for v in got.values())
 
 
 def test_init_detector_from_pth(tmp_path, r04):

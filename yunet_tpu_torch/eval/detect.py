@@ -1,17 +1,21 @@
 """Inference pipeline: preprocess -> forward -> score/decode -> NMS ->
-rescale — counterpart of ``yunet_tpu/eval/detect.py:33-470``.
+rescale — counterpart of ``yunet_tpu/eval/detect.py``.
 
   * ``resize_img`` modes ORIGIN / AUTO (zero-pad H, W up to a multiple of
-    32) and fixed "W,H" canvases with an aspect-preserving resize; cv2 is
-    imported only when an image really has to be resized;
+    32) and fixed "W,H" canvases with an aspect-preserving resize through
+    ``ops/resize.py`` (cv2.resize's bytes, without OpenCV);
   * score fusion sigmoid(cls)*sigmoid(obj) and decode in f32 on the device;
   * NMS either exact on the host (``native.nms``, uncapped — the AP-parity
     path and the default) or on the device (``ops/nms.py``: a top-k cap
-    and one packed readback).
+    and one packed readback);
+  * ``Detector.detect_sweep``: the WIDER sweep over many images of varying
+    sizes, grouped by canvas, in ladder-sized batches;
+    ``Detector.detect_tta``: multi-scale and flip test-time augmentation.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Dict, Optional, Tuple, Union
 
@@ -25,6 +29,7 @@ from ..models.head import flatten_level_outputs
 from ..ops.boxes import bbox_decode, fuse_score, kps_decode
 from ..ops.nms import device_nms, device_nms_batched
 from ..ops.priors import grid_priors
+from ..ops.resize import resize
 from .. import native
 
 
@@ -70,11 +75,23 @@ def resize_img(img: np.ndarray, mode: Union[str, Tuple[int, int]],
     if (new_h, new_w) == img.shape[:2]:
         resized = img       # cv2.resize to the same size is the identity
     else:
-        import cv2
-        resized = cv2.resize(img, (new_w, new_h))
+        # np.require copies a read-only array (a memory-mapped cache entry)
+        # that torch.from_numpy would warn about; resize never writes it
+        resized = resize(torch.from_numpy(np.require(img, requirements=[
+            "C", "W"])), (new_w, new_h)).numpy()
     det_img = np.zeros((input_size[1], input_size[0], 3), dtype=img.dtype)
     det_img[:new_h, :new_w] = resized
     return det_img, det_scale
+
+
+def bbox2result(bboxes: np.ndarray, labels: np.ndarray,
+                num_classes: int) -> list:
+    """Split (n, 5) detections into per-class numpy arrays
+    (reference core/bbox/transforms.py bbox2result)."""
+    if bboxes.shape[0] == 0:
+        return [np.zeros((0, 5), np.float32)
+                for _ in range(num_classes)]
+    return [bboxes[labels == i] for i in range(num_classes)]
 
 
 def _result(sel: np.ndarray, kps_sel: np.ndarray,
@@ -209,8 +226,11 @@ class Detector:
         coords (score-desc), kps (n, 2K), labels (n,).
 
         timings: pass a dict to receive the per-call latency budget in
-        seconds — {preproc, put, device, post}; ``device`` ends with the
-        result on the host.
+        seconds — {preproc, put, dispatch, device_readback, post}.
+        ``dispatch`` ends when the device program has been queued,
+        ``device_readback`` when its result is on the host: the device's
+        run falls in one of the two, depending on how far the host got
+        ahead of it. ``post`` holds the host NMS, if any, and the rescale.
         """
         t = time.perf_counter
         t0 = t()
@@ -223,18 +243,22 @@ class Detector:
         if use_device_nms:
             self._check_thr(score_thr)
             top_k = max_dets or self.cfg.test.device_nms_pre
-            packed = self.detect_packed(x, top_k).cpu().numpy()
+            packed = self.detect_packed(x, top_k)
+            t3 = t()
+            packed = packed.cpu().numpy()            # ONE readback
+            t4 = t()
             sel, kps_sel = _kept_rows(packed, score_thr)
         else:
-            scores, boxes, kps = (a[0].cpu().numpy() for a in
-                                  self.raw(x, conv_kernel=True))
+            out = self.raw(x, conv_kernel=True)
+            t3 = t()
+            scores, boxes, kps = (a[0].cpu().numpy() for a in out)
+            t4 = t()
             sel, kps_sel = self._host_nms(scores, boxes, kps, score_thr,
                                           max_dets)
-        t3 = t()
         out = _result(sel, kps_sel, det_scale)
         if timings is not None:
-            timings.update(preproc=t1 - t0, put=t2 - t1, device=t3 - t2,
-                           post=t() - t3)
+            timings.update(preproc=t1 - t0, put=t2 - t1, dispatch=t3 - t2,
+                           device_readback=t4 - t3, post=t() - t4)
         return out
 
     def detect_batch(self, imgs_bgr, mode: Union[str, Tuple[int, int]], *,
@@ -281,6 +305,162 @@ class Detector:
         return [_result(*self._host_nms(scores[i], boxes[i], kps[i],
                                         score_thr), sc)
                 for i, sc in enumerate(scales)]
+
+    def detect_sweep(self, entries, mode: Union[str, Tuple[int, int]], *,
+                     pad_divisor: int = 32, batch_size: int = 32,
+                     score_thr: Optional[float] = None,
+                     on_result=None, use_device_nms: bool = False,
+                     device_nms_top_k: int = 750,
+                     prefetch: bool = True):
+        """Batched detection sweep over many images of varying sizes —
+        the engine behind tools/test_widerface.py
+        (``yunet_tpu/eval/detect.py:472-602``).
+
+        entries: sequence of (load_fn, (height, width)) — load_fn() is
+        called lazily per chunk and returns a numpy image; the size hint
+        (e.g. labelv2 header dims) drives the grouping. Images group by
+        their canvas_shape (the rule resize_img applies), chunks split
+        down a {1, 2, 4, ..., batch_size} ladder (17 -> 16 + 1: no padding
+        with copies), so a canvas sees at most a few batch sizes, the
+        same batches as the JAX sweep, and any image whose LOADED size
+        disagrees with its hint (EXIF rotation, stale header) runs solo
+        through detect() instead of aborting the sweep.
+
+        Returns results in input order; on_result(index, result) fires as
+        each completes. use_device_nms/device_nms_top_k pass through to
+        detect_batch; a solo image runs detect() with the same NMS backend
+        and max_dets=device_nms_top_k. ``last_sweep_stats`` holds {images,
+        misfit_solo, batches, devnms_saturated}.
+
+        prefetch=True loads the NEXT chunk's images on a lookahead thread
+        while the current chunk runs; that thread only calls the load_fns
+        and canvas_shape (numpy), every torch call stays on this thread.
+        """
+        groups: dict = {}
+        for idx, (load_fn, (h, w)) in enumerate(entries):
+            key = canvas_shape(int(h), int(w), mode, pad_divisor)
+            groups.setdefault(key, []).append((idx, load_fn))
+
+        ladder = [batch_size]
+        while ladder[-1] > 1:
+            ladder.append(ladder[-1] // 2)
+
+        results: dict = {}
+        stats = {"images": len(entries), "misfit_solo": 0, "batches": 0,
+                 "devnms_saturated": 0}
+
+        def emit(idx, res):
+            results[idx] = res
+            if on_result is not None:
+                on_result(idx, res)
+
+        tasks = [(key, members[start:start + batch_size])
+                 for key, members in groups.items()
+                 for start in range(0, len(members), batch_size)]
+
+        def load_chunk(task):
+            key, chunk = task
+            loaded, misfits = [], []
+            for idx, load_fn in chunk:
+                img = load_fn()
+                actual = canvas_shape(img.shape[0], img.shape[1],
+                                      mode, pad_divisor)
+                (loaded if actual == key else misfits).append((idx, img))
+            return loaded, misfits
+
+        def process(loaded, misfits):
+            for idx, img in misfits:      # the hint was wrong: run solo
+                stats["misfit_solo"] += 1
+                emit(idx, self.detect(img, mode=mode, score_thr=score_thr,
+                                      pad_divisor=pad_divisor,
+                                      use_device_nms=use_device_nms,
+                                      max_dets=(device_nms_top_k
+                                                if use_device_nms
+                                                else None)))
+            pos = 0
+            while pos < len(loaded):
+                size = next(s for s in ladder if s <= len(loaded) - pos)
+                part = loaded[pos:pos + size]
+                pos += size
+                stats["batches"] += 1
+                outs = self.detect_batch(
+                    [img for _, img in part], mode,
+                    score_thr=score_thr, pad_divisor=pad_divisor,
+                    use_device_nms=use_device_nms,
+                    device_nms_top_k=device_nms_top_k)
+                if use_device_nms:
+                    stats["devnms_saturated"] += self.last_devnms_saturated
+                for (idx, _), out in zip(part, outs):
+                    emit(idx, out)
+
+        if prefetch and len(tasks) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(max_workers=1) as ex:
+                fut = ex.submit(load_chunk, tasks[0])
+                for t in range(len(tasks)):
+                    loaded, misfits = fut.result()
+                    if t + 1 < len(tasks):
+                        fut = ex.submit(load_chunk, tasks[t + 1])
+                    process(loaded, misfits)
+        else:
+            for task in tasks:
+                process(*load_chunk(task))
+        log = logging.getLogger("yunet_tpu_torch")
+        if stats["misfit_solo"]:
+            log.warning(
+                "detect_sweep: %d/%d images had stale size hints and ran "
+                "solo (batch-1)", stats["misfit_solo"], stats["images"])
+        if stats["devnms_saturated"]:
+            log.warning(
+                "detect_sweep: %d/%d images saturated the device-NMS "
+                "pre-NMS cap (device_nms_top_k=%d) — their keep sets "
+                "may differ from uncapped host NMS; raise the cap or "
+                "use host NMS for protocol-exact AP",
+                stats["devnms_saturated"], stats["images"],
+                device_nms_top_k)
+        self.last_sweep_stats = stats
+        return [results[i] for i in range(len(results))]
+
+    def detect_tta(self, img_bgr: np.ndarray,
+                   scales=((640, 640),), flip: bool = False, *,
+                   score_thr: Optional[float] = None
+                   ) -> Dict[str, np.ndarray]:
+        """Multi-scale (+ horizontal-flip) test-time augmentation: run each
+        view through detect (host NMS), map detections back to original
+        coordinates, merge with one final host NMS
+        (``yunet_tpu/eval/detect.py:604-639``)."""
+        all_boxes, all_kps = [], []
+        views = [(s, False) for s in scales]
+        if flip:
+            views += [(s, True) for s in scales]
+        w = img_bgr.shape[1]
+        for scale, flipped in views:
+            view = img_bgr[:, ::-1] if flipped else img_bgr
+            r = self.detect(np.ascontiguousarray(view), mode=scale,
+                            score_thr=score_thr)
+            bb, kp = r["bboxes"], r["kps"]
+            if flipped and bb.shape[0]:
+                bb = bb.copy()
+                x1 = w - bb[:, 2]
+                x2 = w - bb[:, 0]
+                bb[:, 0], bb[:, 2] = x1, x2
+                kp = kp.reshape(-1, kp.shape[1] // 2, 2).copy()
+                kp = kp[:, [1, 0, 2, 4, 3], :]     # landmark reorder
+                kp[..., 0] = w - kp[..., 0]
+                kp = kp.reshape(bb.shape[0], -1)
+            all_boxes.append(bb)
+            all_kps.append(kp)
+        boxes = np.concatenate(all_boxes, 0)
+        kps = np.concatenate(all_kps, 0)
+        keep = native.nms(boxes[:, :4], boxes[:, 4],
+                          self.cfg.test.nms_iou_thr)
+        return {"bboxes": boxes[keep], "kps": kps[keep],
+                "labels": np.zeros((len(keep),), np.int64)}
+
+    def warmup(self, shapes):
+        """One detect of a black image at each (h, w)."""
+        for (h, w) in shapes:
+            self.detect(np.zeros((h, w, 3), np.uint8), mode="AUTO")
 
     def _host_nms(self, scores, boxes, kps, score_thr, max_dets=None):
         """Exact, uncapped host NMS on one image's raw outputs ->
