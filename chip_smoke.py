@@ -17,8 +17,12 @@ channels-major ConvDP bench (yunet_tpu_torch.tools.bench_convdp_cm) and
 the WIDER evaluation (python -m yunet_tpu_torch.tools.test_widerface in
 modes 0 and 2 with device and host NMS over a seeded 64-image split read
 from the decoded .npy cache, then a fused Detector's sweep, TTA and
-warmup), shows through the launch counters that each path ran its
-kernels, and
+warmup) and the training entry point (python -m
+yunet_tpu_torch.tools.train through its main(): 12 steps of yunet_n at
+640^2 b16 on a seeded 64-image split read from the decoded .npy cache by
+forked loader workers, checkpoints, the WIDER eval hook, an auto-resume
+to step 16 and 4 steps with train.fused_kernels), shows through the
+launch counters that each path ran its kernels, and
 times kernels, their plain versions, library yardsticks and the paths
 with CUDA events. Any failed check raises, and the script exits
 non-zero. There is no CPU path: without a CUDA device it exits non-zero
@@ -45,6 +49,8 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "r04_ema.npz")
 IOU, SCORE = 0.45, 0.02
 DEV = "cuda"
 MAX_GTS = 128          # DataConfig.max_gts
+# the whole run must end within 1200 s; past this, stacks and exit
+WATCHDOG_S = 1100
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores, bf16 tensor-core FLOP/s
 HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -1299,6 +1305,389 @@ def wider_only():
     log(f"[wider] {smi}: " + json.dumps(report))
 
 
+# -- the training entry point ------------------------------------------------
+
+FIT_DIR = os.path.join(ROOT, "work_dirs", "chip_fit")
+FIT_STEPS, FIT_RESUME_STEPS, FIT_FUSED_STEPS = 12, 16, 4
+# the throughput run: logged every FIT_RATE_LOG steps, read after the
+# first two logs (by then the loader's and the staging thread's queues,
+# filled while the model was built, have drained)
+FIT_RATE_STEPS, FIT_RATE_LOG = 48, 8
+# the eval APs after FIT_STEPS steps may fall this far below r04's at most.
+# Not a two-sided band: at the warmup's lr the weights barely move, but BN's
+# running statistics (momentum 0.1) move 72% of the way to the training
+# split's in 12 steps, which can raise the APs by more than this
+FIT_AP_TOL = 0.05
+
+
+def _patched(owner, attr, wrap):
+    """Replace owner.attr by wrap(original); returns a function that puts
+    the original back."""
+    fn = getattr(owner, attr)
+    setattr(owner, attr, wrap(fn))
+    return lambda: setattr(owner, attr, fn)
+
+
+def _timed(calls):
+    """A wrapper that appends each call's host seconds (ending in a
+    synchronize) to ``calls``."""
+    import torch
+
+    def wrap(fn):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+            return out
+        return timed
+    return wrap
+
+
+def _metrics(work_dir, mode):
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    return [r for r in rows if r["mode"] == mode]
+
+
+def train_cli(argv):
+    """python -m yunet_tpu_torch.tools.train through its main() on the
+    card, with the launch counters from zero. Returns {launches, first
+    host batch, first staged batch (on the CPU), eval seconds per call,
+    checkpoint save and load seconds per call, secs}. The first staged
+    batch is copied to the host right where the step would read it: on
+    the current stream, after the staging copy's event."""
+    import torch
+    from yunet_tpu_torch.eval import eval_hook as hook_mod
+    from yunet_tpu_torch.tools import train as cli
+    from yunet_tpu_torch.train import loop as loop_mod
+    rec = {"eval_s": [], "save_s": [], "load_s": []}
+
+    def tee_prefetch(prefetch):
+        def wrapped(iterator, *, device, depth=2):
+            def host():
+                for b in iterator:
+                    rec.setdefault("host", {k: np.array(v)
+                                            for k, v in b.items()})
+                    yield b
+            for staged in prefetch(host(), device=device, depth=depth):
+                if "staged" not in rec:
+                    rec["staged"] = {k: v.cpu() for k, v in staged.items()}
+                yield staged
+        return wrapped
+
+    def timed_hook(make):
+        def wrapped(*a, **kw):
+            return _timed(rec["eval_s"])(make(*a, **kw))
+        return wrapped
+
+    restore = [_patched(loop_mod, "device_prefetch", tee_prefetch),
+               _patched(hook_mod, "make_wider_eval_hook", timed_hook),
+               _patched(loop_mod, "save_checkpoint", _timed(rec["save_s"])),
+               _patched(loop_mod, "load_checkpoint", _timed(rec["load_s"]))]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rec["ts"] = cli.main(argv, device=DEV)
+    finally:
+        for r in restore:
+            r()
+    torch.cuda.synchronize()
+    rec["secs"] = time.perf_counter() - t0
+    rec["launches"] = launch_counts()
+    return rec
+
+
+def _check_staged(rec, what):
+    import torch
+    host, staged = rec["host"], rec["staged"]
+    if sorted(host) != sorted(staged):
+        raise AssertionError(f"{what}: staged keys {sorted(staged)}")
+    for k, v in host.items():
+        if not torch.equal(staged[k], torch.from_numpy(v)):
+            raise AssertionError(f"{what}: the first staged batch's {k} "
+                                 "differs from the host batch")
+
+
+def loader_rates(ann, cache, batches=8):
+    """img/s of the TrainLoader alone (no step), yunet_n's 640^2 b16 spec,
+    after 2 warm-up batches: {workers: img/s} for no workers (one process)
+    over 2 batches, the 4 of data.workers, and one for each CPU this
+    process may run on."""
+    from yunet_tpu_torch.config import yunet_n
+    from yunet_tpu_torch.data.dataset import SampleSpec
+    from yunet_tpu_torch.data.loader import TrainLoader
+    d = yunet_n().data
+    spec = SampleSpec(img_size=d.img_size, max_gts=d.max_gts,
+                      crop_choice=d.crop_choice, flip_ratio=d.flip_ratio)
+    out = {}
+    for workers in sorted({0, d.workers, len(os.sched_getaffinity(0))}):
+        n = 2 if workers == 0 else batches
+        loader = TrainLoader(ann, os.path.join(FIT_DIR, "no_images"),
+                             batch_size=d.samples_per_device, spec=spec,
+                             num_workers=workers, decoded_cache=cache)
+        try:
+            it = iter(loader)
+            for _ in range(2 if workers else 0):
+                next(it)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                next(it)
+            out[workers] = n * d.samples_per_device / (
+                time.perf_counter() - t0)
+        finally:
+            loader.close()
+    return out
+
+
+def step_alone_ms(sd, batch):
+    """ms a step of the shipped yunet_n config at 640^2 b16 on one staged
+    batch, the loader out of the way (CUDA events, cuda_ms)."""
+    from yunet_tpu_torch.config import yunet_n
+    from yunet_tpu_torch.train import init_train_state, make_train_step
+    cfg = yunet_n()
+    ts, opt = init_train_state(cfg, steps_per_epoch=1000,
+                               total_batch=cfg.data.samples_per_device,
+                               device=DEV, state_dict=sd)
+    step = make_train_step(cfg, ts.model, opt, img_size=cfg.data.img_size)
+    batch = {k: v.to(DEV) for k, v in batch.items() if k != "num_overflow"}
+    return cuda_ms(lambda: step(ts, batch), warmup=2, iters=3)
+
+
+def phase_fit(sd):
+    """The training entry point on the card:
+    python -m yunet_tpu_torch.tools.train through its main(), yunet_n at
+    full width, 640^2 b16 bf16, from the r04 EMA weights as a .pth, on a
+    seeded 64-image train split (wider_split with its own root and seed:
+    1024 wide, 576-1536 high, landmarks, decoded .npy cache, 4 forked
+    loader workers, 4 steps an epoch), with the WIDER eval hook on a
+    second split (phase_wider's) in mode 0 with device NMS.
+
+      1. FIT_STEPS steps, a checkpoint every epoch, the eval every 3
+         epochs. Checks: every logged loss finite; checkpoints at steps 4,
+         8 and 12 and `latest` at 12; the first staged batch equal to its
+         host batch; 2 K1 launches a step; K2 launches in the eval; the
+         eval's APs equal to test_widerface's on the step-12 checkpoint
+         (through init_detector) and at most FIT_AP_TOL below its APs on
+         the r04 weights, in the same mode.
+      2. --auto-resume to FIT_RESUME_STEPS: starts at 12 (the loader's
+         first batch is the stream's 13th), 2 K1 launches a step, step 16
+         checkpointed.
+      3. FIT_FUSED_STEPS steps with train.fused_kernels: 29 K4 and 29 K5
+         launches a step, all on the bf16 route.
+      4. FIT_RATE_STEPS shipped steps without eval: the loader-fed img/s
+         from metrics.jsonl once the queues filled at start have drained.
+    Then the loader alone (TrainLoader with no step) and the shipped step
+    alone on a staged batch, to tell which sets the pace. Returns ({kernel:
+    launches over the four runs}, {report})."""
+    import shutil
+    import torch
+    from yunet_tpu_torch.config import yunet_n
+    from yunet_tpu_torch.data.dataset import SampleSpec
+    from yunet_tpu_torch.data.loader import TrainLoader
+    from yunet_tpu_torch.tools import test_widerface
+
+    t0 = time.perf_counter()
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
+    train_ann, train_cache, _ = wider_split(os.path.join(FIT_DIR, "train"),
+                                            seed=6)
+    val_ann, val_cache, val_gt = wider_split(os.path.join(FIT_DIR, "val"))
+    pth = os.path.join(FIT_DIR, "r04_ema.pth")
+    torch.save({"state_dict": sd}, pth)
+    log(f"[fit] train and val splits ({WIDER_IMAGES} images each) and the "
+        f".pth: {time.perf_counter() - t0:.1f} s")
+    ref_aps = test_widerface.main([
+        "yunet_n", FIXTURE, "--mode", "0", "--device-nms", "--ann", val_ann,
+        "--gt-dir", val_gt, "--cache-dir", val_cache,
+        "--eval-log", os.path.join(FIT_DIR, "eval.log")], device=DEV)
+
+    work = os.path.join(FIT_DIR, "shipped")
+    common = ["yunet_n", "--work-dir", work, "--load-pth", pth,
+              "--eval-interval", "3", "--eval-mode", "0",
+              "--eval-device-nms", "--eval-cache-dir", val_cache,
+              "--eval-ann", val_ann, "--eval-gt-dir", val_gt]
+    opts = ["--cfg-options", f"data.train_ann={train_ann}",
+            "data.train_img_prefix=" + os.path.join(FIT_DIR, "no_images"),
+            f"data.decoded_cache={train_cache}", "data.workers=4",
+            "train.checkpoint_interval=1", "train.log_interval=2"]
+    runs = {}
+
+    # 1. the shipped run
+    r = runs["shipped"] = train_cli(common + ["--max-steps", str(FIT_STEPS)]
+                                    + opts)
+    _check_staged(r, "shipped run")
+    rows, vals = _metrics(work, "train"), _metrics(work, "val")
+    if [x["step"] for x in rows] != list(range(2, FIT_STEPS + 1, 2)):
+        raise AssertionError(f"logged steps {[x['step'] for x in rows]}")
+    if not all(np.isfinite(x["loss"]) for x in rows):
+        raise AssertionError("a logged loss is not finite")
+    want = [f"ckpt_{s:08d}" for s in (4, 8, 12)]
+    have = sorted(d for d in os.listdir(work) if d.startswith("ckpt_"))
+    with open(os.path.join(work, "latest")) as f:
+        latest = os.path.basename(f.read().strip())
+    if have != want or latest != want[-1]:
+        raise AssertionError(f"checkpoints {have}, latest {latest}")
+    lc = r["launches"]
+    if lc["simota_streamed"] != 2 * FIT_STEPS:
+        raise AssertionError(f"K1 launches {lc['simota_streamed']}, want "
+                             f"{2 * FIT_STEPS}")
+    if lc["greedy_nms"] <= 0 or [v["step"] for v in vals] != [FIT_STEPS]:
+        raise AssertionError(f"eval: K2 launches {lc['greedy_nms']}, val "
+                             f"rows {vals}")
+    aps = [vals[0][k] for k in ("easy", "medium", "hard")]
+    ckpt_aps = test_widerface.main([
+        "yunet_n", os.path.join(work, want[-1]), "--mode", "0",
+        "--device-nms", "--ann", val_ann, "--gt-dir", val_gt,
+        "--cache-dir", val_cache,
+        "--eval-log", os.path.join(FIT_DIR, "eval.log")], device=DEV)
+    if list(ckpt_aps) != aps:
+        raise AssertionError(f"eval hook APs {aps} != test_widerface's on "
+                             f"the step-{FIT_STEPS} checkpoint {ckpt_aps}")
+    if any(a < r - FIT_AP_TOL for a, r in zip(aps, ref_aps)):
+        raise AssertionError(f"eval APs {aps} after {FIT_STEPS} steps fell "
+                             f"more than {FIT_AP_TOL} below r04's through "
+                             f"test_widerface {list(ref_aps)}")
+    log(f"[fit] shipped: {FIT_STEPS} steps in {r['secs']:.2f} s, losses "
+        f"{[round(x['loss'], 4) for x in rows]}, img/s "
+        f"{[round(x['imgs_per_sec'], 2) for x in rows]}; eval APs {aps} "
+        f"(r04: {[round(a, 4) for a in ref_aps]}); launches {lc}")
+
+    # 2. the resume
+    r = runs["resume"] = train_cli(
+        common + ["--auto-resume", "--max-steps", str(FIT_RESUME_STEPS)]
+        + opts)
+    rows = _metrics(work, "train")
+    new = [x["step"] for x in rows[FIT_STEPS // 2:]]
+    if new != list(range(FIT_STEPS + 2, FIT_RESUME_STEPS + 1, 2)):
+        raise AssertionError(f"resumed run logged steps {new}")
+    if not all(np.isfinite(x["loss"]) for x in rows):
+        raise AssertionError("a resumed loss is not finite")
+    if r["ts"].step != FIT_RESUME_STEPS or len(r["load_s"]) != 1:
+        raise AssertionError(f"resume: step {r['ts'].step}, "
+                             f"{len(r['load_s'])} checkpoint loads")
+    if not os.path.isdir(os.path.join(work, f"ckpt_{FIT_RESUME_STEPS:08d}")):
+        raise AssertionError("no checkpoint at the resumed run's last step")
+    lc = r["launches"]
+    if lc["simota_streamed"] != 2 * (FIT_RESUME_STEPS - FIT_STEPS):
+        raise AssertionError(f"resume: K1 launches {lc['simota_streamed']}")
+    d = yunet_n().data
+    bsz, size = r["host"]["image"].shape[:2]      # the run's batch shape
+    spec = SampleSpec(img_size=size, max_gts=r["host"]["gt_valid"].shape[1],
+                      crop_choice=d.crop_choice, flip_ratio=d.flip_ratio)
+    cursor = TrainLoader(train_ann, os.path.join(FIT_DIR, "no_images"),
+                         batch_size=bsz, spec=spec, num_workers=0,
+                         decoded_cache=train_cache, start_step=FIT_STEPS)
+    try:
+        want_batch = next(iter(cursor))
+    finally:
+        cursor.close()
+    for k, v in want_batch.items():
+        if not np.array_equal(r["host"][k], v):
+            raise AssertionError(f"resume: the first batch's {k} is not the "
+                                 f"stream's batch {FIT_STEPS + 1}")
+    _check_staged(r, "resumed run")
+    log(f"[fit] resume: {FIT_STEPS} -> {FIT_RESUME_STEPS} in "
+        f"{r['secs']:.2f} s, losses {[round(x['loss'], 4) for x in rows]}; "
+        f"launches {lc}")
+
+    # 3. the fused run
+    fwork = os.path.join(FIT_DIR, "fused")
+    r = runs["fused"] = train_cli(
+        ["yunet_n", "--work-dir", fwork, "--load-pth", pth,
+         "--max-steps", str(FIT_FUSED_STEPS), "--force-experimental"]
+        + opts + ["train.fused_kernels=true"])
+    _check_staged(r, "fused run")
+    lc, n = r["launches"], 29 * FIT_FUSED_STEPS
+    want = {"fused_conv_dp": n, "fused_conv_dp_mma": n, "convdp_bwd": n,
+            "convdp_bwd_mma": n, "simota_streamed": 2 * FIT_FUSED_STEPS}
+    if any(lc[k] != v for k, v in want.items()):
+        raise AssertionError(f"fused run: launches {lc}, want {want}")
+    frows = _metrics(fwork, "train")
+    if not all(np.isfinite(x["loss"]) for x in frows):
+        raise AssertionError("a fused loss is not finite")
+    log(f"[fit] fused: {FIT_FUSED_STEPS} steps in {r['secs']:.2f} s, losses "
+        f"{[round(x['loss'], 4) for x in frows]}; launches {lc}")
+
+    # 4. the loader-fed rate past the queues' start, no eval
+    twork = os.path.join(FIT_DIR, "throughput")
+    r = runs["throughput"] = train_cli(
+        ["yunet_n", "--work-dir", twork, "--load-pth", pth,
+         "--max-steps", str(FIT_RATE_STEPS)] + opts
+        + [f"train.log_interval={FIT_RATE_LOG}",
+           f"train.checkpoint_interval={FIT_RATE_STEPS}"])
+    if r["launches"]["simota_streamed"] != 2 * FIT_RATE_STEPS:
+        raise AssertionError(f"throughput run: launches {r['launches']}")
+    trows = _metrics(twork, "train")
+    if not all(np.isfinite(x["loss"]) for x in trows):
+        raise AssertionError("a throughput-run loss is not finite")
+    fed = trows[2:]
+    fed_ips = len(fed) / sum(1 / x["imgs_per_sec"] for x in fed)
+
+    # which sets the pace: the loader alone, the step alone
+    rows = _metrics(work, "train")[:FIT_STEPS // 2]
+    rates = loader_rates(train_ann, train_cache)
+    step_ms = step_alone_ms(sd, runs["shipped"]["staged"])
+    bsz = runs["shipped"]["staged"]["image"].shape[0]
+    launches = {}
+    for run in runs.values():
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    shipped = runs["shipped"]
+    report = {
+        "loader_fed_train_img_s": fed_ips,
+        "loader_fed_train_img_s_per_interval":
+            [x["imgs_per_sec"] for x in trows],
+        "shipped_run_img_s_per_interval": [x["imgs_per_sec"] for x in rows],
+        "loader_alone_img_s": rates,
+        "step_alone_ms": step_ms,
+        "step_alone_img_s": bsz / (step_ms / 1e3),
+        "cpu_count": os.cpu_count(),
+        "cpu_affinity": len(os.sched_getaffinity(0)),
+        "eval_hook_s": shipped["eval_s"] + runs["resume"]["eval_s"],
+        "checkpoint_save_ms": [s * 1e3 for s in shipped["save_s"]],
+        "checkpoint_load_ms": [s * 1e3 for s in runs["resume"]["load_s"]],
+        "run_secs": {k: v["secs"] for k, v in runs.items()},
+        "eval_aps": aps, "r04_aps": list(ref_aps),
+        "launches": {k: v["launches"] for k, v in runs.items()}}
+    pace = ("the loader" if fed_ips < 0.8 * report["step_alone_img_s"]
+            else "the step")
+    log(f"[fit] loader-fed train {fed_ips:.2f} img/s (steps "
+        f"{2 * FIT_RATE_LOG + 1}-{FIT_RATE_STEPS}), loader "
+        f"alone {', '.join(f'{w} workers {v:.2f}' for w, v in rates.items())}"
+        f" img/s, step alone {step_ms:.4f} ms "
+        f"({report['step_alone_img_s']:.2f} img/s): {pace} sets the pace; "
+        f"os.cpu_count() {os.cpu_count()}, affinity "
+        f"{report['cpu_affinity']}; eval hook "
+        f"{[round(s, 4) for s in report['eval_hook_s']]} s; checkpoint save "
+        f"{[round(s, 3) for s in report['checkpoint_save_ms']]} ms, load "
+        f"{[round(s, 3) for s in report['checkpoint_load_ms']]} ms")
+    return launches, report
+
+
+def fit_only():
+    """phase_fit alone, for quick work on the training entry point:
+    python3 -c "import chip_smoke as s; s.fit_only()" from the repository
+    root. Builds only the kernels the path runs (csrc/simota.cu,
+    csrc/nms.cu, csrc/convdp.cu, csrc/convdp_bwd.cu) and the host routines
+    (csrc/host_nms.cpp)."""
+    import torch
+    from yunet_tpu_torch import native
+    from yunet_tpu_torch.ops import convdp, convdp_train, nms, simota
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    watchdog(WATCHDOG_S)
+    smi = nvidia_smi_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} | {smi}")
+    phase_build({"simota.cu": simota.LIB, "nms.cu": nms.LIB,
+                 "convdp.cu": convdp.LIB, "convdp_bwd.cu": convdp_train.LIB,
+                 "host_nms.cpp": native.LIB})
+    _, sd, _, _ = load_model()
+    launches, report = phase_fit(sd)
+    log(f"[fit] launches {launches}")
+    log(f"[fit] {smi}: " + json.dumps(report))
+
+
 def _to_device(batch):
     import torch
     return {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}
@@ -2183,12 +2572,21 @@ def load_model():
     return cfg, sd, model, fold_inference_params(model, cfg)
 
 
+def watchdog(seconds):
+    """Dump every thread's stack to stderr and exit non-zero if the run is
+    still going after ``seconds`` (a hang then fails fast and shows where
+    it is)."""
+    import faulthandler
+    faulthandler.dump_traceback_later(seconds, exit=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 1
+    watchdog(WATCHDOG_S)
     # the package first: without it the script fails before printing
     import yunet_tpu_torch  # noqa: F401
     smi = nvidia_smi_line()
@@ -2209,6 +2607,8 @@ def main() -> int:
     phase_train_times(sd, batches[0])
     wider_launches, wider_report = phase_wider()
     log(f"[wider] {smi}: " + json.dumps(wider_report))
+    fit_launches, fit_report = phase_fit(sd)
+    log(f"[fit] {smi}: " + json.dumps(fit_report))
 
     kernels = [
         {"name": "greedy_nms", "route": "cuda",
@@ -2218,6 +2618,8 @@ def main() -> int:
          "launches": serve_launches["greedy_nms"],
          # the WIDER sweeps with --device-nms, mode 0 and mode 2
          "launches_wider": wider_launches["greedy_nms"],
+         # the eval hook of the training CLI (phase_fit)
+         "launches_training_cli": fit_launches["greedy_nms"],
          "max_abs_err": nms_err,
          # no single PyTorch call computes greedy NMS (no torchvision)
          "library_ms": None,
@@ -2237,6 +2639,9 @@ def main() -> int:
          "also_runs_on": "training path with train.fused_kernels",
          "launches_fused_training": fused_launches["fused_conv_dp"],
          "launches_mma_fused_training": fused_launches["fused_conv_dp_mma"],
+         # the training CLI's fused run (phase_fit)
+         "launches_training_cli": fit_launches["fused_conv_dp"],
+         "launches_mma_training_cli": fit_launches["fused_conv_dp_mma"],
          "max_abs_err": conv_err["f32"],
          "bf16_excess": conv_err["bf16_excess"], **conv_t},
         {"name": "simota_streamed", "route": "cuda",
@@ -2244,6 +2649,8 @@ def main() -> int:
          "replaces": "yunet_tpu/ops/simota_pallas.py:233",
          "also_replaces": "yunet_tpu/ops/simota_pallas.py:118",
          "launches": train_launches["simota_streamed"],
+         # the training CLI: shipped, resumed and fused runs (phase_fit)
+         "launches_training_cli": fit_launches["simota_streamed"],
          "max_abs_err": simota_err,
          # no single PyTorch call computes the SimOTA reductions
          "library_ms": None, **simota_t},
@@ -2253,6 +2660,9 @@ def main() -> int:
          "launches": fused_launches["convdp_bwd"],
          # of those, the launches of the bf16 (tensor-core) route
          "launches_mma": fused_launches["convdp_bwd_mma"],
+         # the training CLI's fused run (phase_fit)
+         "launches_training_cli": fit_launches["convdp_bwd"],
+         "launches_mma_training_cli": fit_launches["convdp_bwd_mma"],
          "max_abs_err": bwd_err["f32_abs"], **bwd_t},
         {"name": "convdp_cm", "route": "cuda",
          "source": "yunet_tpu_torch/csrc/convdp_cm.cu",

@@ -1,5 +1,5 @@
 """yunet_tpu_torch — the YuNet serving path, WIDER Face evaluation and
-train step in PyTorch, for NVIDIA Hopper.
+single-device training in PyTorch, for NVIDIA Hopper.
 
 A port of the JAX package ``yunet_tpu`` (which stays the numerical
 reference) to PyTorch. Module names follow ``yunet_tpu`` so each module's
@@ -18,19 +18,36 @@ Layout:
                    variant), greedy NMS and streamed SimOTA (each a
                    hand-written CUDA kernel beside its plain PyTorch
                    version); the nvcc build helper
-  train/           targets, LR schedule, EMA, SGD and the train step
+  train/           targets, LR schedule, EMA, SGD and the train step;
+                   the loop (fit: logging, finite-loss guard, checkpoints,
+                   auto-resume, eval cadence), torch checkpoints, hooks
   csrc/            the CUDA sources and the host NMS source, built at
                    first use into _build/
-  utils/           JAX-pytree / .npz / .pth parameter bridge; AutoRank
-  data/            labelv2 parser, decoded-image (.npy) cache
+  utils/           JAX-pytree / .npz / .pth parameter bridge; AutoRank;
+                   the logger and metrics.jsonl; the environment report
+  data/            labelv2 parser, decoded-image (.npy) cache, the train
+                   augmentations (crop, cv2-exact resize, flip), the
+                   dataset, the forked-worker TrainLoader and the
+                   side-stream device_prefetch
   eval/            Detector (preprocess -> forward -> decode -> NMS, the
-                   WIDER sweep, TTA); the WIDER protocol and VOC mAP
+                   WIDER sweep, TTA); the WIDER protocol and VOC mAP; the
+                   in-training WIDER eval hook
   native.py        exact host greedy NMS and the WIDER matcher
                    (csrc/host_nms.cpp, a copy of the JAX package's source)
-  apis.py          init_detector / inference_detector
-  tools/           test_widerface (WIDER val AP), make_synth_wider (GT
+  apis.py          init_detector (also from a training checkpoint) /
+                   inference_detector / train_detector / random seeds
+  tools/           train (the training CLI; smoke_data for --smoke),
+                   test_widerface (WIDER val AP), make_synth_wider (GT
                    .mat writer), bench_convdp_cm (channels-major ConvDP
                    micro-bench)
+
+Training on the CPU (the tests' way):
+  from yunet_tpu_torch.tools.train import main
+  main(["yunet_n", "--smoke", "--max-steps", "2", "--work-dir", "w",
+        "--cfg-options", "data.img_size=96"], device="cpu")
+On the card, ``python -m yunet_tpu_torch.tools.train yunet_n
+--cfg-options data.decoded_cache=...``: the card host has no OpenCV, so
+images come from the decoded ``.npy`` cache (data/cache.py).
 """
 
 __version__ = "0.1.0"

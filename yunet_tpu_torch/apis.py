@@ -1,9 +1,12 @@
-"""High-level entry points — counterpart of ``yunet_tpu/apis.py:42-77``
-(reference mmdet/apis: init_detector, inference_detector).
+"""High-level entry points — counterpart of ``yunet_tpu/apis.py``
+(reference mmdet/apis: init_detector, inference_detector, train_detector,
+init_random_seed).
 """
 
 from __future__ import annotations
 
+import os
+import random
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -12,6 +15,25 @@ import torch
 from .config import Config, get_config
 from .eval.detect import Detector
 from .models.detector import YuNet
+from .train.loop import fit as train_detector  # noqa: F401  (re-export)
+
+# JAX's init_random_seed(None): int(jax.random.randint(PRNGKey(0), (), 0,
+# 2**31 - 1)), a constant (a test holds it equal)
+DEFAULT_SEED = 31327077
+
+
+def init_random_seed(seed: Optional[int] = None) -> int:
+    """``seed``, or else the value JAX's init_random_seed derives from
+    PRNGKey(0) (the reference broadcasts rank 0's draw,
+    apis/train.py:19-49; a fixed value is the same on every process)."""
+    return DEFAULT_SEED if seed is None else seed
+
+
+def set_random_seed(seed: int) -> None:
+    """Seed the host RNGs (Python, numpy) and torch's."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
 
 
 def init_detector(config: Union[str, Config],
@@ -27,7 +49,10 @@ def init_detector(config: Union[str, Config],
         only; ``trust_checkpoint=True`` allows a full unpickle, which runs
         code from the file);
       * a flat ``.npz`` of JAX parameter leaves (``p{i}``/``s{i}``, the
-        format of tests/fixtures/r04_ema.npz).
+        format of tests/fixtures/r04_ema.npz);
+      * a checkpoint directory written by training (``ckpt_*``,
+        train/checkpoint.py): its raw parameters and BN statistics, not
+        the EMA shadow, as JAX's init_detector reads an orbax directory.
     """
     from .utils.jax_params import (load_flat_npz, load_pth_state_dict,
                                    state_dict_from_jax)
@@ -37,13 +62,16 @@ def init_detector(config: Union[str, Config],
         model = YuNet(cfg.model, device=torch.device("cpu"),
                       generator=torch.Generator().manual_seed(0))
         return Detector(cfg, model, device=device, dtype=dtype, fused=fused)
-    if checkpoint.endswith(".pth"):
+    if os.path.isdir(checkpoint):
+        from .train.checkpoint import read_state
+        sd = read_state(checkpoint)["model"]
+    elif checkpoint.endswith(".pth"):
         sd = load_pth_state_dict(checkpoint, trusted=trust_checkpoint)
     elif checkpoint.endswith(".npz"):
         sd = state_dict_from_jax(*load_flat_npz(checkpoint, cfg.model))
     else:
         raise ValueError(f"unsupported checkpoint {checkpoint!r}: expected "
-                         "a .pth or a flat .npz")
+                         "a .pth, a flat .npz or a checkpoint directory")
     return Detector(cfg, sd, device=device, dtype=dtype, fused=fused)
 
 

@@ -7,10 +7,11 @@ imports jax. A test holds this copy equal to the original, field by field.
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import os
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -227,3 +228,48 @@ def validate_config(cfg: Config, *, force_experimental: bool = False
             + "\npass --force-experimental (CLI) or "
             "validate_config(..., force_experimental=True) to run anyway")
     return cfg
+
+
+def _coerce(value: str) -> Any:
+    # lowercase true/false/none are what users actually type on a CLI;
+    # ast.literal_eval only accepts the Python spellings, and the
+    # fall-through returned the truthy STRING "false" (silently leaving
+    # e.g. train.bf16 enabled)
+    low = value.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("none", "null"):
+        return None
+    try:
+        return ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+        return value
+
+
+def apply_overrides(cfg: Config, options: Sequence[str]) -> Config:
+    """Apply ``section.key=value`` overrides (reference --cfg-options) —
+    a copy of ``yunet_tpu/config.py:apply_overrides``."""
+    for opt in options:
+        key, _, raw = opt.partition("=")
+        parts = key.strip().split(".")
+        value = _coerce(raw.strip())
+        cfg = _replace_path(cfg, parts, value)
+    return cfg
+
+
+def _replace_path(node: Any, parts: Sequence[str], value: Any) -> Any:
+    head = parts[0]
+    if not dataclasses.is_dataclass(node) or head not in {
+            f.name for f in dataclasses.fields(node)}:
+        raise KeyError(f"no config field '{head}' on {type(node).__name__}")
+    if len(parts) == 1:
+        current = getattr(node, head)
+        if isinstance(current, tuple) and isinstance(value, list):
+            value = tuple(value)
+        if isinstance(current, bool) and not isinstance(value, bool):
+            raise ValueError(
+                f"config field '{head}' is a bool; got {value!r} "
+                "(use true/false)")
+        return dataclasses.replace(node, **{head: value})
+    child = _replace_path(getattr(node, head), parts[1:], value)
+    return dataclasses.replace(node, **{head: child})

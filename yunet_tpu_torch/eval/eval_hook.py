@@ -1,9 +1,29 @@
-"""WIDER protocol modes of the eval hook (``yunet_tpu/eval/eval_hook.py``).
-The hook itself is not ported yet."""
+"""Eval-during-training: the WIDER Face val AP hook — counterpart of
+``yunet_tpu/eval/eval_hook.py`` (reference EvalHook/DistEvalHook,
+mmdet/core/evaluation/eval_hooks.py:24-130, enabled by
+configs/yunet_n.py:146): every N epochs the training loop calls the hook,
+which runs the full WIDER val protocol on the current parameters (the EMA
+shadow when EMA is on) and returns {easy, medium, hard} APs. The loop logs
+them to train.log and metrics.jsonl under the ``val`` prefix.
+
+Single process: the multi-process shard and gather of JAX's hook
+(``_gather_sharded_detections``) waits for data-parallel training.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import os
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.cache import load_cached
+from ..data.labelv2 import parse_labelv2
+from ..models.detector import YuNet
+from .detect import Detector
+from .widerface import wider_evaluation
 
 
 def widerface_eval_mode(mode: int) -> Union[str, Tuple[int, int]]:
@@ -19,3 +39,106 @@ def widerface_eval_mode(mode: int) -> Union[str, Tuple[int, int]]:
     if mode > 30:
         return (mode, mode)
     raise ValueError(f"bad WIDER eval mode {mode}")
+
+
+def ema_state_dict(ts) -> Dict[str, torch.Tensor]:
+    """The model's state dict with each parameter replaced by its EMA
+    shadow; the BN running statistics stay the model's, as in JAX (whose
+    EMA shadows the params tree only)."""
+    sd = ts.model.state_dict()
+    for (name, _), shadow in zip(ts.model.named_parameters(), ts.ema):
+        sd[name] = shadow
+    return sd
+
+
+def make_wider_eval_hook(cfg: Config, *, device,
+                         mode: Union[str, Tuple[int, int]] = "ORIGIN",
+                         ann: Optional[str] = None,
+                         img_prefix: Optional[str] = None,
+                         gt_dir: Optional[str] = None,
+                         pad_divisor: int = 32,
+                         limit: int = 0,
+                         use_ema: bool = True,
+                         also_raw: bool = False,
+                         mesh=None,
+                         use_device_nms: bool = False,
+                         device_nms_top_k: int = 750,
+                         cache_dir: Optional[str] = None):
+    """Build a ``(train_state, step) -> {'easy','medium','hard'}`` hook that
+    sweeps on ``device`` in bf16 (as JAX's ``Detector(cfg)``).
+
+    limit: evaluate only the first N val images (0 = all).
+    also_raw: when EMA is on and use_ema, also sweep the RAW parameters
+    each interval and report their APs as ``raw_easy/raw_medium/raw_hard``.
+    use_device_nms: the whole-batch NMS kernel in the sweep, reading back
+    only packed top-``device_nms_top_k`` rows per image.
+    cache_dir: read images from this decoded ``.npy`` cache
+    (``data/cache.py``), else decode the JPEGs under img_prefix with
+    OpenCV; a missing image raises either way, and neither switches to the
+    other.
+    mesh: data-parallel evaluation is not ported; a mesh raises.
+    """
+    if mesh is not None or (torch.distributed.is_available()
+                            and torch.distributed.is_initialized()
+                            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError(
+            "the multi-process eval hook (the shard and gather of "
+            "yunet_tpu/eval/eval_hook.py:_gather_sharded_detections) is "
+            "not ported yet: ROADMAP M9")
+    ann = ann or cfg.data.val_ann
+    img_prefix = img_prefix or cfg.data.val_img_prefix
+    gt_dir = gt_dir or cfg.data.gt_dir
+    records = parse_labelv2(ann, test_mode=True)
+    if limit:
+        records = records[:limit]
+    # parameters are loaded into this model per call
+    det = Detector(cfg, YuNet(cfg.model, device=torch.device(device)),
+                   device=device)
+
+    if cache_dir is not None:
+        def load(rec):
+            img = load_cached(cache_dir, rec.filename)
+            if img is None:
+                raise FileNotFoundError(
+                    f"{rec.filename} is not in the cache {cache_dir}")
+            return img
+    else:
+        import cv2
+
+        def load(rec):
+            img = cv2.imread(os.path.join(img_prefix, rec.filename))
+            if img is None:
+                raise FileNotFoundError(rec.filename)
+            return img
+
+    def _sweep(state_dict):
+        det.model.load_state_dict(state_dict)
+        # batched sweep — same engine as tools/test_widerface.py
+        outs = det.detect_sweep(
+            [((lambda r=rec: load(r)), (rec.height, rec.width))
+             for rec in records],
+            mode, pad_divisor=pad_divisor,
+            use_device_nms=use_device_nms,
+            device_nms_top_k=device_nms_top_k)
+        results = {}
+        for rec, out in zip(records, outs):
+            bb = out["bboxes"]
+            xywh = np.concatenate(
+                [bb[:, :2], bb[:, 2:4] - bb[:, :2], bb[:, 4:5]], axis=1)
+            event, name = rec.filename.split("/")
+            results.setdefault(event, {})[
+                os.path.splitext(name)[0]] = xywh.astype(np.float64)
+        easy, medium, hard = wider_evaluation(results, gt_dir)
+        return {"easy": float(easy), "medium": float(medium),
+                "hard": float(hard)}
+
+    def hook(ts, step):
+        ema_active = use_ema and ts.ema is not None
+        aps = _sweep(ema_state_dict(ts) if ema_active
+                     else ts.model.state_dict())
+        if ema_active and also_raw:
+            raw = _sweep(ts.model.state_dict())
+            aps.update({f"raw_{k}": v for k, v in raw.items()})
+        return aps
+
+    return hook
