@@ -21,8 +21,12 @@ warmup) and the training entry point (python -m
 yunet_tpu_torch.tools.train through its main(): 12 steps of yunet_n at
 640^2 b16 on a seeded 64-image split read from the decoded .npy cache by
 forked loader workers, checkpoints, the WIDER eval hook, an auto-resume
-to step 16 and 4 steps with train.fused_kernels), shows through the
-launch counters that each path ran its kernels, and
+to step 16 and 4 steps with train.fused_kernels) and device-side
+augmentation (the same split staged as a bank in card memory; the card's
+device_resample against the CPU's, dense against tiled; the training CLI
+with data.device_aug=true: 12 steps, a resume to 16 and 48 steps for the
+fed rate), shows through the launch counters that each path ran its
+kernels, and
 times kernels, their plain versions, library yardsticks and the paths
 with CUDA events. Any failed check raises, and the script exits
 non-zero. There is no CPU path: without a CUDA device it exits non-zero
@@ -1688,6 +1692,296 @@ def fit_only():
     log(f"[fit] {smi}: " + json.dumps(report))
 
 
+# -- device-side augmentation ----------------------------------------------
+
+DEVAUG_DIR = os.path.join(ROOT, "work_dirs", "chip_device_aug")
+DEVAUG_STEPS, DEVAUG_RESUME_STEPS, DEVAUG_RATE_STEPS = 12, 16, 48
+# the producer alone: batches timed after the queue's prefetched ones
+DEVAUG_PRODUCER_BATCHES = 32
+
+
+def fit_train_split():
+    """phase_fit's 64-image train split and its .npy cache, drawn when
+    phase_fit has not run: (labelv2 path, cache dir)."""
+    root = os.path.join(FIT_DIR, "train")
+    ann, cache = os.path.join(root, "labelv2.txt"), os.path.join(root,
+                                                                  "cache")
+    if not os.path.exists(ann):
+        ann, cache, _ = wider_split(root, seed=6)
+    return ann, cache
+
+
+def _check_resample(bank_dev, bank_cpu, geo, out_size, max_scale):
+    """The card's device_resample against the CPU's on the same bank and
+    geometry, tiled (the step's route): f32 within 1e-4, bf16 equal (or
+    within one bf16 ulp, with the share of differing values); and the
+    card's dense route equal to its tiled one in bf16. Returns
+    {f32_max_abs, bf16_max_abs, bf16_share_differing, bf16_max_ulps}."""
+    import torch
+    from yunet_tpu_torch.data.device_aug import device_resample
+    out = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        kw = dict(out_size=out_size, dtype=dt, max_scale=max_scale)
+        card = device_resample(bank_dev, *(g.to(DEV) for g in geo),
+                               **kw).cpu()
+        host = device_resample(bank_cpu, *geo, **kw)
+        diff = (card.float() - host.float()).abs()
+        out[f"{name}_max_abs"] = float(diff.max())
+        if name == "f32":
+            if out["f32_max_abs"] > 1e-4:
+                raise AssertionError(f"device_resample f32: card and CPU "
+                                     f"differ by {out['f32_max_abs']}")
+            continue
+        # one bf16 ulp of the CPU's value: 2^(exponent - 7)
+        ulp = torch.ldexp(torch.ones_like(diff), torch.frexp(
+            host.float()).exponent - 8)
+        ulps = diff / ulp
+        out["bf16_share_differing"] = float((diff > 0).float().mean())
+        out["bf16_max_ulps"] = float(ulps.max())
+        if out["bf16_max_ulps"] > 1:
+            raise AssertionError(f"device_resample bf16: card and CPU "
+                                 f"differ by {out['bf16_max_ulps']} ulps")
+        dense = device_resample(bank_dev, *(g.to(DEV) for g in geo),
+                                out_size=out_size, dtype=dt).cpu()
+        if not torch.equal(dense, card):
+            raise AssertionError("device_resample bf16: dense and tiled "
+                                 "differ on the card")
+    return out
+
+
+def phase_device_aug(sd):
+    """Device-side augmentation on the card, yunet_n 640^2 b16 bf16 on
+    phase_fit's 64-image train split read from the .npy cache:
+
+      1. a DeviceAugLoader (the ImageBank built on the host with
+         resize_area) and the bank staged into card memory; its bytes and
+         seconds; the staged bank equal to the host's;
+      2. device_resample on the card against the CPU's on the same bank
+         and the loader's first geometry batch (_check_resample);
+      3. device_resample alone per b16 batch, dense against tiled, bf16
+         and f32 (tools/bench_resample.py, interleaved windows);
+      4. the producer thread alone (geometry batches a second, no step)
+         and the device-aug step alone on one batch;
+      5. the training CLI with data.device_aug=true: DEVAUG_STEPS steps
+         with a checkpoint every epoch, --auto-resume to
+         DEVAUG_RESUME_STEPS (the resumed loader's first batch is the
+         stream's 13th), then DEVAUG_RATE_STEPS steps for the fed img/s
+         (from metrics.jsonl after the first two logs). Checks finite
+         losses, the checkpoints, the first staged batch equal to its host
+         batch, the staging log line and 2 K1 launches a step.
+    Returns ({kernel: launches over the three CLI runs}, {report})."""
+    import shutil
+    import torch
+    from yunet_tpu_torch.config import yunet_n
+    from yunet_tpu_torch.data.dataset import SampleSpec
+    from yunet_tpu_torch.data.device_aug import AUG_KEYS, DeviceAugLoader
+    from yunet_tpu_torch.tools import bench_resample
+
+    t0 = time.perf_counter()
+    shutil.rmtree(DEVAUG_DIR, ignore_errors=True)
+    ann, cache = fit_train_split()
+    pth = os.path.join(DEVAUG_DIR, "r04_ema.pth")
+    os.makedirs(DEVAUG_DIR)
+    torch.save({"state_dict": sd}, pth)
+    cfg = yunet_n()
+    d = cfg.data
+    spec = SampleSpec(img_size=d.img_size, max_gts=d.max_gts,
+                      crop_choice=d.crop_choice, flip_ratio=d.flip_ratio)
+    no_images = os.path.join(FIT_DIR, "no_images")
+    max_scale = max(d.crop_choice) * d.bank_size / d.img_size
+    rep = {}
+
+    # 1. the bank
+    t = time.perf_counter()
+    loader = DeviceAugLoader(ann, no_images, batch_size=d.samples_per_device,
+                             spec=spec, seed=cfg.train.seed,
+                             bank_size=d.bank_size,
+                             bank_canvas=d.bank_canvas, decoded_cache=cache)
+    try:
+        rep["bank_build_s"] = time.perf_counter() - t
+        n = len(loader.bank)
+        rep["bank_images"] = n
+        rep["bank_build_ms_per_image"] = rep["bank_build_s"] * 1e3 / n
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bank = loader.bank.to_device(DEV)
+        torch.cuda.synchronize()
+        rep["staging_s"] = time.perf_counter() - t
+        rep["bank_gb"] = bank.numel() / 1e9
+        rep["staging_gb_s"] = rep["bank_gb"] / rep["staging_s"]
+        bank_cpu = torch.from_numpy(loader.bank.images)
+        if not torch.equal(bank.cpu(), bank_cpu):
+            raise AssertionError("the staged bank differs from the host's")
+        log(f"[device_aug] bank: {n} images ({rep['bank_gb']:.4f} GB) built "
+            f"on the host in {rep['bank_build_s']:.3f} s "
+            f"({rep['bank_build_ms_per_image']:.2f} ms an image), staged in "
+            f"{rep['staging_s']:.4f} s ({rep['staging_gb_s']:.2f} GB/s)")
+
+        # 2. the card against the CPU
+        it = iter(loader)
+        batches = [next(it) for _ in range(3)]
+        geos = [tuple(torch.from_numpy(b[k]) for k in AUG_KEYS)
+                for b in batches]
+        rep["resample_check"] = _check_resample(bank, bank_cpu, geos[0],
+                                                d.img_size, max_scale)
+        log(f"[device_aug] device_resample card vs CPU (b16 640^2, tiled): "
+            f"{rep['resample_check']}")
+
+        # 3. the resample alone, dense against tiled
+        rep["resample_bench"] = bench_resample.run(
+            bank, [tuple(g.to(DEV) for g in geo) for geo in geos],
+            out_size=d.img_size, max_scale=max_scale)
+        rb = rep["resample_bench"]
+        log("[device_aug] device_resample a b16 640^2 batch: " + ", ".join(
+            f"{k} {v['ms']:.4f} ms (f32 bound {v['bound_ms']:.4f})"
+            for k, v in rb.items() if isinstance(v, dict)))
+
+        # 4. the producer alone; the device-aug step alone
+        t = time.perf_counter()
+        for _ in range(DEVAUG_PRODUCER_BATCHES):
+            next(it)
+        dt = time.perf_counter() - t
+        rep["producer_ms_per_batch"] = dt * 1e3 / DEVAUG_PRODUCER_BATCHES
+        rep["producer_img_s"] = (DEVAUG_PRODUCER_BATCHES
+                                 * d.samples_per_device / dt)
+        step_batch = {k: torch.from_numpy(v)
+                      for k, v in batches[0].items()}
+        step_batch["bank"] = bank
+        rep["step_alone_ms"] = step_alone_ms(sd, step_batch)
+        rep["step_alone_img_s"] = d.samples_per_device / (
+            rep["step_alone_ms"] / 1e3)
+        log(f"[device_aug] producer alone {rep['producer_ms_per_batch']:.3f}"
+            f" ms a batch ({rep['producer_img_s']:.1f} img/s); the "
+            f"device-aug step alone {rep['step_alone_ms']:.4f} ms "
+            f"({rep['step_alone_img_s']:.2f} img/s)")
+    finally:
+        loader.close()
+    del bank
+
+    # 5. the CLI
+    work = os.path.join(DEVAUG_DIR, "run")
+    common = ["yunet_n", "--work-dir", work, "--load-pth", pth]
+    opts = ["--cfg-options", f"data.train_ann={ann}",
+            f"data.train_img_prefix={no_images}",
+            f"data.decoded_cache={cache}", "data.device_aug=true",
+            "train.checkpoint_interval=1", "train.log_interval=2"]
+    runs = {}
+    r = runs["shipped"] = train_cli(
+        common + ["--max-steps", str(DEVAUG_STEPS)] + opts)
+    _check_staged(r, "device-aug run")
+    if sorted(r["host"]) != sorted(AUG_KEYS + (
+            "gt_bboxes", "gt_labels", "gt_kps", "gt_valid", "num_overflow")):
+        raise AssertionError(f"device-aug batch keys {sorted(r['host'])}")
+    rows = _metrics(work, "train")
+    if [x["step"] for x in rows] != list(range(2, DEVAUG_STEPS + 1, 2)):
+        raise AssertionError(f"logged steps {[x['step'] for x in rows]}")
+    if not all(np.isfinite(x["loss"]) for x in rows):
+        raise AssertionError("a device-aug loss is not finite")
+    want = [f"ckpt_{s:08d}" for s in (4, 8, 12)]
+    have = sorted(x for x in os.listdir(work) if x.startswith("ckpt_"))
+    with open(os.path.join(work, "latest")) as f:
+        latest = os.path.basename(f.read().strip())
+    if have != want or latest != want[-1]:
+        raise AssertionError(f"checkpoints {have}, latest {latest}")
+    with open(os.path.join(work, "train.log")) as f:
+        staged = [x for x in f if "into device HBM" in x]
+    if len(staged) != 1 or f"staged {n} images" not in staged[0]:
+        raise AssertionError(f"staging log lines {staged}")
+    if r["launches"]["simota_streamed"] != 2 * DEVAUG_STEPS:
+        raise AssertionError(f"K1 launches {r['launches']}")
+    log(f"[device_aug] {DEVAUG_STEPS} steps in {r['secs']:.2f} s, losses "
+        f"{[round(x['loss'], 4) for x in rows]}, img/s "
+        f"{[round(x['imgs_per_sec'], 2) for x in rows]}; "
+        f"{staged[0].split(' - INFO - ')[-1].strip()}; launches "
+        f"{r['launches']}")
+
+    r = runs["resume"] = train_cli(
+        common + ["--auto-resume", "--max-steps", str(DEVAUG_RESUME_STEPS)]
+        + opts)
+    rows = _metrics(work, "train")
+    new = [x["step"] for x in rows[DEVAUG_STEPS // 2:]]
+    if new != list(range(DEVAUG_STEPS + 2, DEVAUG_RESUME_STEPS + 1, 2)):
+        raise AssertionError(f"resumed run logged steps {new}")
+    if not all(np.isfinite(x["loss"]) for x in rows):
+        raise AssertionError("a resumed device-aug loss is not finite")
+    if r["ts"].step != DEVAUG_RESUME_STEPS or len(r["load_s"]) != 1:
+        raise AssertionError(f"resume: step {r['ts'].step}, "
+                             f"{len(r['load_s'])} checkpoint loads")
+    if not os.path.isdir(os.path.join(work,
+                                      f"ckpt_{DEVAUG_RESUME_STEPS:08d}")):
+        raise AssertionError("no checkpoint at the resumed run's last step")
+    if r["launches"]["simota_streamed"] != 2 * (DEVAUG_RESUME_STEPS
+                                                - DEVAUG_STEPS):
+        raise AssertionError(f"resume: K1 launches {r['launches']}")
+    cursor = DeviceAugLoader(ann, no_images, batch_size=d.samples_per_device,
+                             spec=spec, seed=cfg.train.seed,
+                             start_step=DEVAUG_STEPS, bank_size=d.bank_size,
+                             bank_canvas=d.bank_canvas, decoded_cache=cache)
+    try:
+        want_batch = next(iter(cursor))
+    finally:
+        cursor.close()
+    for k, v in want_batch.items():
+        if not np.array_equal(r["host"][k], v):
+            raise AssertionError(f"resume: the first batch's {k} is not the "
+                                 f"stream's batch {DEVAUG_STEPS + 1}")
+    _check_staged(r, "resumed device-aug run")
+    log(f"[device_aug] resume: {DEVAUG_STEPS} -> {DEVAUG_RESUME_STEPS} in "
+        f"{r['secs']:.2f} s, losses {[round(x['loss'], 4) for x in rows]}; "
+        f"launches {r['launches']}")
+
+    twork = os.path.join(DEVAUG_DIR, "throughput")
+    r = runs["throughput"] = train_cli(
+        ["yunet_n", "--work-dir", twork, "--load-pth", pth,
+         "--max-steps", str(DEVAUG_RATE_STEPS)] + opts
+        + [f"train.log_interval={FIT_RATE_LOG}",
+           f"train.checkpoint_interval={DEVAUG_RATE_STEPS}"])
+    if r["launches"]["simota_streamed"] != 2 * DEVAUG_RATE_STEPS:
+        raise AssertionError(f"throughput run: launches {r['launches']}")
+    trows = _metrics(twork, "train")
+    if not all(np.isfinite(x["loss"]) for x in trows):
+        raise AssertionError("a throughput-run loss is not finite")
+    fed = trows[2:]
+    rep["fed_train_img_s"] = len(fed) / sum(1 / x["imgs_per_sec"]
+                                            for x in fed)
+    rep["fed_train_img_s_per_interval"] = [x["imgs_per_sec"] for x in trows]
+    rep["run_secs"] = {k: v["secs"] for k, v in runs.items()}
+    rep["checkpoint_load_ms"] = [x * 1e3 for x in runs["resume"]["load_s"]]
+    rep["launches"] = {k: v["launches"] for k, v in runs.items()}
+    rep["phase_s"] = time.perf_counter() - t0
+    launches = {}
+    for run in runs.values():
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    pace = ("the producer" if rep["producer_img_s"]
+            < 1.25 * rep["fed_train_img_s"] else "the step")
+    log(f"[device_aug] device-aug-fed train {rep['fed_train_img_s']:.2f} "
+        f"img/s (steps {2 * FIT_RATE_LOG + 1}-{DEVAUG_RATE_STEPS}), the "
+        f"step alone {rep['step_alone_img_s']:.2f} img/s, the producer "
+        f"alone {rep['producer_img_s']:.1f} img/s: {pace} sets the pace; "
+        f"phase {rep['phase_s']:.1f} s")
+    return launches, rep
+
+
+def device_aug_only():
+    """phase_device_aug alone, for quick work on device-side augmentation:
+    python3 -c "import chip_smoke as s; s.device_aug_only()" from the
+    repository root. Builds only the kernel the path runs (csrc/simota.cu)
+    and draws phase_fit's train split if it is not there."""
+    import torch
+    from yunet_tpu_torch.ops import simota
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    watchdog(WATCHDOG_S)
+    smi = nvidia_smi_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} | {smi}")
+    phase_build({"simota.cu": simota.LIB})
+    _, sd, _, _ = load_model()
+    launches, report = phase_device_aug(sd)
+    log(f"[device_aug] launches {launches}")
+    log(f"[device_aug] {smi}: " + json.dumps(report))
+
+
 def _to_device(batch):
     import torch
     return {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}
@@ -2593,22 +2887,35 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    phase_build()
-    nms_err, nms_t = phase_nms()
-    cfg, sd, model, folded = load_model()
-    conv_err, conv_t = phase_convdp(folded, cfg)
-    simota_err, simota_t = phase_simota(model, cfg)
-    _, fdet, serve_launches = phase_slice()
-    train_launches, batches = phase_train(sd)
-    bwd_err, bwd_t = phase_convdp_bwd(folded, cfg)
-    fused_launches, _ = phase_train_fused(sd, batches)
-    cm_err, (cm_launches, cm_mma), cm_t = phase_convdp_cm()
-    phase_times(fdet)
-    phase_train_times(sd, batches[0])
-    wider_launches, wider_report = phase_wider()
+    secs = {}
+
+    def phase(fn, *args):
+        """fn(*args), its seconds logged and kept under its name."""
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[fn.__name__] = round(time.perf_counter() - t, 1)
+        log(f"[phase] {fn.__name__}: {secs[fn.__name__]} s")
+        return out
+
+    phase(phase_build)
+    nms_err, nms_t = phase(phase_nms)
+    cfg, sd, model, folded = phase(load_model)
+    conv_err, conv_t = phase(phase_convdp, folded, cfg)
+    simota_err, simota_t = phase(phase_simota, model, cfg)
+    _, fdet, serve_launches = phase(phase_slice)
+    train_launches, batches = phase(phase_train, sd)
+    bwd_err, bwd_t = phase(phase_convdp_bwd, folded, cfg)
+    fused_launches, _ = phase(phase_train_fused, sd, batches)
+    cm_err, (cm_launches, cm_mma), cm_t = phase(phase_convdp_cm)
+    phase(phase_times, fdet)
+    phase(phase_train_times, sd, batches[0])
+    wider_launches, wider_report = phase(phase_wider)
     log(f"[wider] {smi}: " + json.dumps(wider_report))
-    fit_launches, fit_report = phase_fit(sd)
+    fit_launches, fit_report = phase(phase_fit, sd)
     log(f"[fit] {smi}: " + json.dumps(fit_report))
+    devaug_launches, devaug_report = phase(phase_device_aug, sd)
+    log(f"[device_aug] {smi}: " + json.dumps(devaug_report))
+    log(f"[phase] seconds {json.dumps(secs)}")
 
     kernels = [
         {"name": "greedy_nms", "route": "cuda",
@@ -2651,6 +2958,9 @@ def main() -> int:
          "launches": train_launches["simota_streamed"],
          # the training CLI: shipped, resumed and fused runs (phase_fit)
          "launches_training_cli": fit_launches["simota_streamed"],
+         # the training CLI with data.device_aug=true: 12 steps, the
+         # resume to 16 and 48 steps (phase_device_aug)
+         "launches_device_aug": devaug_launches["simota_streamed"],
          "max_abs_err": simota_err,
          # no single PyTorch call computes the SimOTA reductions
          "library_ms": None, **simota_t},

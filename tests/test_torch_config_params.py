@@ -119,7 +119,8 @@ def test_port_imports_without_jax_or_cv2():
             "yunet_tpu_torch.train.loop, yunet_tpu_torch.data.loader, "
             "yunet_tpu_torch.data.dataset, yunet_tpu_torch.eval.eval_hook, "
             "yunet_tpu_torch.tools.train, yunet_tpu_torch.tools.smoke_data, "
-            "yunet_tpu_torch.train.hooks, yunet_tpu_torch.utils.env; "
+            "yunet_tpu_torch.train.hooks, yunet_tpu_torch.utils.env, "
+            "yunet_tpu_torch.data.device_aug; "
             "bad = sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'cv2', 'yunet_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

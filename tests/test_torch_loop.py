@@ -11,8 +11,8 @@ yunet_tpu's, on the CPU:
     loader's cursor matters), equals 4 straight steps in the parameters,
     BN statistics, optimizer trace and count, EMA shadow, step and the
     step 3-4 losses;
-  * the eval cadence of tests/test_loop.py, the finite-loss guard, and
-    the refusals of a mesh and of device-side augmentation;
+  * the eval cadence of tests/test_loop.py, the finite-loss guard, the
+    refusal of a mesh, and one step of device-side augmentation;
   * init_detector reads a checkpoint directory back to the same
     detections as the in-memory model.
 
@@ -280,16 +280,24 @@ def test_fit_raises_on_nan(tmp_path):
             loader=_synthetic(SyntheticLoader, cfg, 100))
 
 
-def test_fit_refuses_a_mesh_and_device_aug(tmp_path):
+def test_fit_refuses_a_mesh_and_device_aug(cached_split, tmp_path):
+    """A mesh is refused (M9); data.device_aug trains: the bank is staged
+    and one step runs on it (tests/test_torch_device_aug.py holds it to
+    JAX's)."""
     cfg = tiny_cfg()
     with pytest.raises(NotImplementedError, match="M9"):
         fit(cfg, device="cpu", work_dir=str(tmp_path), max_steps=1,
             mesh=object(), loader=_synthetic(SyntheticLoader, cfg))
+    ann, prefix, cache = cached_split
     aug = dataclasses.replace(cfg, data=dataclasses.replace(
-        cfg.data, device_aug=True))
-    with pytest.raises(NotImplementedError, match="M10"):
-        fit(aug, device="cpu", work_dir=str(tmp_path), max_steps=1,
-            loader=_synthetic(SyntheticLoader, cfg))
+        cfg.data, device_aug=True, train_ann=ann, train_img_prefix=prefix,
+        decoded_cache=cache, bank_size=96, bank_canvas=192))
+    ts = fit(aug, device="cpu", work_dir=str(tmp_path / "aug"), max_steps=1)
+    assert ts.step == 1
+    rows = metrics_rows(str(tmp_path / "aug"))
+    assert [r["step"] for r in rows] == [1] and np.isfinite(rows[0]["loss"])
+    with open(tmp_path / "aug" / "train.log") as f:
+        assert "staged 8 images" in f.read()
 
 
 def test_sample_stats_and_memory_hooks_match_jax(tmp_path):

@@ -391,8 +391,21 @@ def test_seeded_init_trains_and_unported_options_raise():
     batch = _np_batch(2, 0)
     losses = [float(step(ts, batch)[1]["loss"]) for _ in range(8)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
-    with pytest.raises(NotImplementedError, match="M10"):
-        step(ts, {**batch, "bank": np.zeros((1, 8, 8, 3), np.uint8)})
+    # a bank batch trains: crops resampled from the bank (one inside the
+    # image, one flipped and past its edge), GT slots re-padded
+    rng = np.random.RandomState(5)
+    bank = torch.from_numpy(rng.randint(0, 256, (2, 96, 96, 3)).astype(
+        np.uint8))
+    aug = {"bank": bank, "aug_idx": np.array([0, 1], np.int32),
+           "aug_y0": np.array([8.0, -20.0], np.float32),
+           "aug_x0": np.array([0.0, 40.0], np.float32),
+           "aug_side": np.array([IMG, 1.5 * IMG], np.float32),
+           "aug_flip": np.array([False, True]),
+           **{k: batch[k][:, :4] for k in ("gt_bboxes", "gt_labels",
+                                           "gt_kps", "gt_valid")}}
+    ts, m, aux = step(ts, aug, return_aux=True)
+    assert np.isfinite(float(m["loss"])) and ts.step == 9
+    assert aux["targets"]["fg"].shape[0] == 2
     with pytest.raises(NotImplementedError, match="M9"):
         make_train_step(tcfg, ts.model, opt, img_size=IMG, mesh=object())
 

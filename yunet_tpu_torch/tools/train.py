@@ -8,10 +8,15 @@
       data.decoded_cache=data/widerface/train_cache data.workers=8
   python -m yunet_tpu_torch.tools.train yunet_n --smoke   # synthetic data
 
+  python -m yunet_tpu_torch.tools.train yunet_n --cfg-options \
+      data.device_aug=true data.decoded_cache=data/widerface/train_cache
+
 A host without OpenCV reads training images from the decoded ``.npy``
 cache (``data.decoded_cache``, built by ``data/cache.py``) and eval images
-from ``--eval-cache-dir``. Data-parallel training (``--distributed``) is
-not ported yet and raises; ``--single-device`` is accepted.
+from ``--eval-cache-dir``. ``data.device_aug=true`` stages the decoded
+train set in card memory once and crops it on the card each step
+(data/device_aug.py). Data-parallel training (``--distributed``) is not
+ported yet and raises; ``--single-device`` is accepted.
 """
 
 import argparse

@@ -42,17 +42,15 @@ def fit(cfg: Config, *, device, work_dir: Optional[str] = None,
     checkpoint's step. eval_hook: optional callable (train_state, step)
     -> dict of metrics, fired every eval_interval_epochs and at the last
     step (the EvalHook counterpart, reference
-    core/evaluation/eval_hooks.py:24-130). Data-parallel training (a
-    ``mesh``) and device-side augmentation (``data.device_aug``) are not
-    ported and raise.
+    core/evaluation/eval_hooks.py:24-130). With ``data.device_aug`` the
+    default loader is a DeviceAugLoader: its bank is staged into
+    ``device`` once and every batch carries it (a loader with a ``bank``
+    is staged the same way). Data-parallel training (a ``mesh``) is not
+    ported and raises.
     """
     if mesh is not None:
         raise NotImplementedError("data-parallel training (a mesh) is not "
                                   "ported yet: ROADMAP M9")
-    if cfg.data.device_aug:
-        raise NotImplementedError("device-side augmentation "
-                                  "(data.device_aug) is not ported yet: "
-                                  "ROADMAP M10")
     work_dir = work_dir or cfg.work_dir
     logger = get_logger(f"{work_dir}/train.log")
     metrics_log = MetricsLogger(work_dir)
@@ -76,13 +74,23 @@ def fit(cfg: Config, *, device, work_dir: Optional[str] = None,
                           max_gts=cfg.data.max_gts,
                           crop_choice=cfg.data.crop_choice,
                           flip_ratio=cfg.data.flip_ratio)
-        loader = TrainLoader(
-            cfg.data.train_ann, cfg.data.train_img_prefix,
-            batch_size=cfg.data.samples_per_device, spec=spec,
-            num_workers=cfg.data.workers, seed=cfg.train.seed,
-            min_size=cfg.data.min_size, start_step=resume_step,
-            decoded_cache=cfg.data.decoded_cache,
-            reduced_decode=cfg.data.reduced_decode)
+        if cfg.data.device_aug:
+            from ..data.device_aug import DeviceAugLoader
+            loader = DeviceAugLoader(
+                cfg.data.train_ann, cfg.data.train_img_prefix,
+                batch_size=cfg.data.samples_per_device, spec=spec,
+                seed=cfg.train.seed, min_size=cfg.data.min_size,
+                start_step=resume_step, bank_size=cfg.data.bank_size,
+                bank_canvas=cfg.data.bank_canvas, device_shards=1,
+                decoded_cache=cfg.data.decoded_cache)
+        else:
+            loader = TrainLoader(
+                cfg.data.train_ann, cfg.data.train_img_prefix,
+                batch_size=cfg.data.samples_per_device, spec=spec,
+                num_workers=cfg.data.workers, seed=cfg.train.seed,
+                min_size=cfg.data.min_size, start_step=resume_step,
+                decoded_cache=cfg.data.decoded_cache,
+                reduced_decode=cfg.data.reduced_decode)
     it = None
     try:
         steps_per_epoch = loader.steps_per_epoch
@@ -114,12 +122,25 @@ def fit(cfg: Config, *, device, work_dir: Optional[str] = None,
             from .hooks import SampleSizeStatistics
             stats = SampleSizeStatistics()
 
+        bank = None
+        if hasattr(loader, "bank"):
+            # the card-staged dataset: one copy now, then handed to every
+            # step, which resamples its crops on the card
+            t_stage = time.time()
+            bank = loader.bank.to_device(device)   # returns once copied
+            logger.info(
+                f"staged {len(loader.bank)} images "
+                f"({bank.numel() / 1e9:.2f} GB) into device HBM "
+                f"in {time.time() - t_stage:.1f}s")
+
         it = device_prefetch(iter(loader), device=device)
         t_last = time.time()
         imgs_since = 0
         for i in range(ts.step, total_steps):
             batch = next(it)
             batch.pop("num_overflow", None)
+            if bank is not None:
+                batch["bank"] = bank
             if stats is not None:
                 stats.update({k: batch[k].cpu().numpy()
                               for k in ("gt_bboxes", "gt_valid")})

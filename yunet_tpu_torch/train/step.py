@@ -11,8 +11,10 @@ the trunk's dtype:
 
 The model's parameters and BN running statistics are updated in place:
 ``TrainState`` holds the model, the step count and the EMA shadow, the
-optimizer holds its momentum trace. Data parallelism (a ``mesh``) and
-device-side augmentation (a ``bank`` in the batch) are not ported yet.
+optimizer holds its momentum trace. A batch that holds a ``bank`` (the
+card-staged dataset, data/device_aug.py) carries crop geometry in place of
+images, and the step resamples them on the bank's device. Data
+parallelism (a ``mesh``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -190,6 +192,34 @@ def loss_fn(model: YuNet, cfg: Config, batch: Dict[str, torch.Tensor],
     return total, metrics, aux
 
 
+def _resampled(cfg: Config, batch, img_size: int, device) -> dict:
+    """A bank batch with its images resampled from the bank (crop, resize
+    and flip: data/device_aug.py:device_resample) and its GT slots, which
+    the loader sends only as many as its records can fill, re-padded to
+    cfg.data.max_gts (yunet_tpu/train/step.py:199-224). The bank must lie
+    on the model's device: it is never moved, nor resampled elsewhere."""
+    from ..data.device_aug import AUG_KEYS, device_resample
+    batch = dict(batch)
+    bank = batch.pop("bank")
+    if bank.device != torch.device(device):
+        raise ValueError(f"the bank lies on {bank.device}, the model on "
+                         f"{device}: stage it with ImageBank.to_device")
+    geo = [torch.as_tensor(batch.pop(k)).to(device) for k in AUG_KEYS]
+    batch["image"] = device_resample(
+        bank, *geo, out_size=img_size,
+        dtype=torch.bfloat16 if cfg.train.bf16 else torch.float32,
+        # side <= max(crop_choice) * bank short side, so this bounds
+        # side / out_size even when bank_size != img_size
+        max_scale=max(cfg.data.crop_choice) * cfg.data.bank_size / img_size)
+    need = cfg.data.max_gts - batch["gt_bboxes"].shape[1]
+    if need > 0:
+        for k in ("gt_bboxes", "gt_labels", "gt_kps", "gt_valid"):
+            v = torch.as_tensor(batch[k]).to(device)
+            pad = (0, 0) * (v.dim() - 2) + (0, need)
+            batch[k] = torch.nn.functional.pad(v, pad)
+    return batch
+
+
 def make_train_step(cfg: Config, model: YuNet, opt: SGDMomentum, *,
                     img_size: int, mesh=None):
     """The train step for ``model`` (the TrainState's) on its device:
@@ -208,9 +238,7 @@ def make_train_step(cfg: Config, model: YuNet, opt: SGDMomentum, *,
 
     def step(ts: TrainState, batch, *, return_aux: bool = False):
         if "bank" in batch:
-            raise NotImplementedError("device-side augmentation (a 'bank' "
-                                      "batch) is not ported yet: ROADMAP "
-                                      "M10")
+            batch = _resampled(cfg, batch, img_size, device)
         batch = {k: torch.as_tensor(batch[k]).to(device) for k in BATCH_KEYS}
         model.train()
         total, metrics, aux = loss_fn(model, cfg, batch, priors)
