@@ -25,8 +25,11 @@ to step 16 and 4 steps with train.fused_kernels) and device-side
 augmentation (the same split staged as a bank in card memory; the card's
 device_resample against the CPU's, dense against tiled; the training CLI
 with data.device_aug=true: 12 steps, a resume to 16 and 48 steps for the
-fed rate), shows through the launch counters that each path ran its
-kernels, and
+fed rate) and export and import (ONNX and C++ files written from the card's
+model, the files run through the torch ONNX executor on the card, the
+ONNX-imported fused Detector on the ConvDP and NMS kernels, the
+detect_image and yunet2onnx CLIs), shows through the launch counters that
+each path ran its kernels, and
 times kernels, their plain versions, library yardsticks and the paths
 with CUDA events. Any failed check raises, and the script exits
 non-zero. There is no CPU path: without a CUDA device it exits non-zero
@@ -1982,6 +1985,345 @@ def device_aug_only():
     log(f"[device_aug] {smi}: " + json.dumps(report))
 
 
+# -- export and import -----------------------------------------------------
+
+EXPORT_DIR = os.path.join(ROOT, "work_dirs", "chip_export")
+# (label, file, batch, height, width) of the executor checks
+EXPORT_RUNS = (("static 640^2 b1", "static", 1, 640, 640),
+               ("dynamic 320^2 b4", "dynamic", 4, 320, 320),
+               ("dynamic 640^2 b1", "dynamic", 1, 640, 640))
+# (height, width) of the face images the imported Detector detects on
+EXPORT_IMAGES = ((640, 640), (640, 640), (480, 640))
+
+
+def _check_folded_equal(got, want, path="folded"):
+    """Every tensor of the imported tree torch.equal to the fold's, the
+    same topology and relu flags."""
+    import torch
+    from yunet_tpu_torch.models.fused import FoldedUnit
+    if isinstance(want, dict):
+        if list(got) != list(want):
+            raise AssertionError(f"{path}: keys {list(got)} != {list(want)}")
+        for k in want:
+            _check_folded_equal(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: {len(got)} units, want "
+                                 f"{len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            _check_folded_equal(a, b, f"{path}/{i}")
+    elif isinstance(want, FoldedUnit):
+        for f in ("w1", "b1", "wd", "bd"):
+            _check_folded_equal(getattr(got, f), getattr(want, f),
+                                f"{path}.{f}")
+        if got.relu != want.relu:
+            raise AssertionError(f"{path}: relu {got.relu}")
+    elif not (got.device == want.device and torch.equal(got, want)):
+        raise AssertionError(f"{path}: the imported tensor differs from "
+                             "the fold")
+
+
+def phase_export(sd):
+    """Export and import on the card, yunet_n with the r04 weights, TF32
+    off:
+
+      1. export_onnx at 640^2 and with dynamic axes, and generate_cpp, from
+         the model on the card into work_dirs/chip_export/ (bytes, host
+         ms); the same bytes from a copy of the model on the CPU (the
+         card's BN fold is the host's);
+      2. the files through OnnxExecutor(device="cuda"): the static file at
+         640^2 b1, the dynamic one at 320^2 b4 and 640^2 b1, on face
+         images, within rtol 1e-3 / atol 1e-5 of the model's f32 outputs;
+      3. load_onnx_params(device="cuda") torch.equal to
+         fold_inference_params of the model;
+      4. Detector(cfg, None, folded=imported) in f32 and bf16,
+         detect(use_device_nms=True) on EXPORT_IMAGES: the detections equal
+         to Detector(fused=True)'s from the model; K4 and K2/K3 counted
+         over these calls (29 and 2 a detect, the bf16 ones all on K4's
+         tensor-core route); K4 held to its plain version on this
+         Detector's own unit inputs (bf16: _check_convdp_bf16; f32:
+         fused_forward with the kernel against without it, and the
+         detections); K2/K3's keep sets equal to the host NMS's;
+      5. the CLIs through their main() on the card: detect_image on an .npy
+         face image with --fused --device-nms (its box count equal to
+         the API's), yunet2onnx --verify;
+      6. the executor's time against Detector.raw's (the imported
+         Detector, f32 and bf16, and the unfused model's f32) on the same
+         batch, 640^2 b1 and 320^2 b16, CUDA events, in the order
+         executor, raw..., raw... reversed, executor.
+    Returns ({kernel: launches in 4 and 5}, {report})."""
+    import dataclasses
+    import shutil
+    import torch
+    from yunet_tpu_torch import native
+    from yunet_tpu_torch.apis import init_detector
+    from yunet_tpu_torch.config import yunet_n
+    from yunet_tpu_torch.eval.detect import Detector
+    from yunet_tpu_torch.export import export_onnx, generate_cpp
+    from yunet_tpu_torch.export.onnx_import import load_onnx_params
+    from yunet_tpu_torch.export.onnx_runtime import OnnxExecutor
+    from yunet_tpu_torch.models import fused as fused_mod
+    from yunet_tpu_torch.models.detector import YuNet
+    from yunet_tpu_torch.models.fused import (fold_inference_params,
+                                              fused_forward)
+    from yunet_tpu_torch.models.head import flatten_level_outputs
+    from yunet_tpu_torch.ops.convdp import fused_conv_dp_plain
+    from yunet_tpu_torch.ops.nms import device_nms
+    from yunet_tpu_torch.tools import detect_image, yunet2onnx
+    from yunet_tpu_torch.tools.yunet2onnx import flat_outputs
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    full = yunet_n()
+    cfg = full.model
+    model = YuNet(cfg, device=DEV)
+    model.load_state_dict(sd)
+    host_model = YuNet(cfg, device="cpu")
+    host_model.load_state_dict(sd)
+    rep = {"export": {}}
+
+    # 1. the files
+    paths = {}
+    makers = {"static": ("yunet_n_640_640.onnx", lambda m: export_onnx(
+                  m, cfg, input_shape=(640, 640))),
+              "dynamic": ("yunet_n_dynamic.onnx", lambda m: export_onnx(
+                  m, cfg, dynamic=True)),
+              "cpp": ("facedetectcnn-data.cpp", lambda m: generate_cpp(
+                  m, cfg).encode())}
+    for what, (name, make) in makers.items():
+        t = time.perf_counter()
+        blob = make(model)
+        ms = (time.perf_counter() - t) * 1e3
+        if make(host_model) != blob:
+            raise AssertionError(f"export {what}: the card's model and the "
+                                 "host's write different files")
+        paths[what] = os.path.join(EXPORT_DIR, name)
+        with open(paths[what], "wb") as f:
+            f.write(blob)
+        rep["export"][what] = {"bytes": len(blob), "host_ms": ms}
+        log(f"[export] {name}: {len(blob)} bytes in {ms:.2f} ms (host), "
+            "equal to the CPU model's")
+
+    # 2. the executor against the model
+    rng = np.random.RandomState(12)
+    executors = {w: OnnxExecutor(paths[w], device=DEV)
+                 for w in ("static", "dynamic")}
+    rep["executor_max_abs_err"] = {}
+    for label, what, b, h, w in EXPORT_RUNS:
+        x = np.stack([face_image(rng, h, w, rng.randint(2, 9))
+                      for _ in range(b)]).transpose(0, 3, 1, 2).astype(
+                          np.float32)
+        got = executors[what](x)
+        want = flat_outputs(model, x)
+        err = 0.0
+        for k, v in want.items():
+            e = float(np.abs(got[k] - v).max())
+            if got[k].shape != v.shape or not np.allclose(
+                    got[k], v, rtol=1e-3, atol=1e-5):
+                raise AssertionError(
+                    f"executor {label}: {k} differs from the model (max abs "
+                    f"err {e}, rtol 1e-3, atol 1e-5)")
+            err = max(err, e)
+        rep["executor_max_abs_err"][label] = err
+        log(f"[export] executor {label}: the 12 outputs within rtol 1e-3 / "
+            f"atol 1e-5 of the f32 model, max abs err {err:.3e}")
+
+    # 3. the import
+    imported = load_onnx_params(paths["static"], cfg, device=DEV)
+    _check_folded_equal(imported, fold_inference_params(model, cfg))
+    log("[export] load_onnx_params: every tensor torch.equal to "
+        "fold_inference_params")
+
+    # 4. the imported Detector
+    imgs = [face_image(rng, h, w, 6) for h, w in EXPORT_IMAGES]
+    dets = {dt: Detector(full, None, folded=imported, device=DEV, dtype=dt)
+            for dt in (torch.float32, torch.bfloat16)}
+    refs = {dt: Detector(full, model, device=DEV, dtype=dt, fused=True)
+            for dt in dets}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    results = {dt: [d.detect(img, use_device_nms=True) for img in imgs]
+               for dt, d in dets.items()}
+    torch.cuda.synchronize()
+    lc = launch_counts()
+    n = len(imgs) * len(dets)
+    if lc["fused_conv_dp"] != 29 * n or lc["greedy_nms"] != 2 * n or \
+            lc["fused_conv_dp_mma"] != 29 * len(imgs):
+        raise AssertionError(f"imported Detector launches {lc}, want 29 K4 "
+                             f"(29 of them bf16 on the tensor-core route) "
+                             f"and 2 K2/K3 a detect, {n} detects")
+    launches = {k: lc[k] for k in ("fused_conv_dp", "fused_conv_dp_mma",
+                                   "greedy_nms")}
+    counts = {}
+    for dt, det in dets.items():
+        name = str(dt).split(".")[-1]
+        for i, (img, r) in enumerate(zip(imgs, results[dt])):
+            want = refs[dt].detect(img, use_device_nms=True)
+            for k in ("bboxes", "kps", "labels"):
+                if not np.array_equal(r[k], want[k]):
+                    raise AssertionError(f"imported Detector {name}, image "
+                                         f"{i}: {k} differ from "
+                                         "Detector(fused=True)'s")
+            if not all(np.all(np.isfinite(v)) for v in r.values()):
+                raise AssertionError("non-finite detection output")
+        counts[name] = [r["bboxes"].shape[0] for r in results[dt]]
+        if min(counts[name]) == 0:
+            raise AssertionError(f"imported Detector {name} found no face "
+                                 f"in an image: {counts[name]}")
+    rep["detections"] = counts
+    log(f"[export] imported Detector detect(use_device_nms=True): "
+        f"detections {counts} equal to Detector(fused=True)'s; launches "
+        f"{launches}")
+
+    # K4 against its plain version on the imported Detector. bf16: each of
+    # the 29 unit calls of one detect, on its own inputs, by the
+    # bf16_excess rule; f32: the whole folded trunk with and without the
+    # kernel, and the detections
+    calls = []
+    kernel = fused_mod.fused_conv_dp
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return kernel(*args, **kwargs)
+    fused_mod.fused_conv_dp = record
+    try:
+        dets[torch.bfloat16].raw(dets[torch.bfloat16]._input([imgs[0]]),
+                                 conv_kernel=True)
+    finally:
+        fused_mod.fused_conv_dp = kernel
+    worst = 0.0
+    for i, (args, kwargs) in enumerate(calls):
+        excess, _ = _check_convdp_bf16(f"imported unit {i}", *args,
+                                       **kwargs)
+        worst = max(worst, excess)
+    if len(calls) != 29:
+        raise AssertionError(f"{len(calls)} ConvDP calls in a detect")
+    x = torch.from_numpy(imgs[0][None].transpose(0, 3, 1, 2).astype(
+        np.float32)).to(DEV)
+    a, b = (flatten_level_outputs(fused_forward(imported, x, cfg,
+                                                use_kernel=k))
+            for k in (True, False))
+    f32_err = max(float((a[k] - b[k]).abs().max()) for k in a)
+    if not all(torch.allclose(a[k], b[k], rtol=1e-4, atol=1e-4) for k in a):
+        raise AssertionError(f"imported f32 trunk: kernel against plain, max "
+                             f"abs err {f32_err} (rtol/atol 1e-4)")
+    fused_mod.fused_conv_dp = fused_conv_dp_plain
+    try:
+        plain = [dets[torch.float32].detect(img, use_device_nms=True)
+                 for img in imgs]
+    finally:
+        fused_mod.fused_conv_dp = kernel
+    for g, w in zip(results[torch.float32], plain):
+        _match(g, w, atol=1e-2, rtol=1e-4, score_atol=1e-4)
+    rep["k4_bf16_excess"], rep["k4_f32_trunk_max_abs_err"] = worst, f32_err
+    log(f"[export] K4 on the imported Detector: bf16 excess {worst:.3f} of "
+        f"2^-24 S over its 29 unit calls (limit 2), f32 trunk max abs err "
+        f"{f32_err:.3e} against the plain units (rtol/atol 1e-4), f32 "
+        "detections pair with the plain units'")
+    thr, iou = full.test.score_thr, full.test.nms_iou_thr
+    for dt, det in dets.items():
+        for i, img in enumerate(imgs):
+            scores, boxes, _ = det.raw(det._input([img]), conv_kernel=True)
+            _, keep, idx = device_nms(boxes[0], scores[0], top_k=5000,
+                                      iou_thr=iou, score_thr=thr)
+            s, bx = scores[0].cpu().numpy(), boxes[0].cpu().numpy()
+            valid = s >= thr
+            host = np.flatnonzero(valid)[native.nms(bx[valid], s[valid],
+                                                    iou)]
+            if not np.array_equal(host, idx[keep].cpu().numpy()):
+                raise AssertionError(f"K2/K3 keep != host NMS, imported "
+                                     f"{dt}, image {i}")
+    log("[export] K2/K3 keep sets equal to the host NMS's on the imported "
+        "Detector's raw outputs (f32 and bf16, every image)")
+
+    # 5. the CLIs
+    pth = os.path.join(EXPORT_DIR, "r04_ema.pth")
+    torch.save({"state_dict": sd}, pth)
+    npy = os.path.join(EXPORT_DIR, "face.npy")
+    np.save(npy, imgs[0])
+    out = os.path.join(EXPORT_DIR, "result.npy")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    r = detect_image.main(["yunet_n", pth, npy, "--out", out, "--fused",
+                           "--device-nms"], device=DEV)
+    torch.cuda.synchronize()
+    lc = launch_counts()
+    if lc["fused_conv_dp"] != 29 or lc["greedy_nms"] != 2:
+        raise AssertionError(f"detect_image launches {lc}")
+    for k in launches:
+        launches[k] += lc[k]
+    api = init_detector(dataclasses.replace(full, test=dataclasses.replace(
+        full.test, score_thr=0.3)), pth, device=DEV, fused=True)
+    want = api.detect(imgs[0], use_device_nms=True)
+    if r["bboxes"].shape != want["bboxes"].shape or \
+            not np.array_equal(r["bboxes"], want["bboxes"]):
+        raise AssertionError(f"detect_image: {r['bboxes'].shape[0]} boxes, "
+                             f"the API {want['bboxes'].shape[0]}")
+    if np.load(out).shape != imgs[0].shape or r["bboxes"].shape[0] == 0:
+        raise AssertionError("detect_image: no faces, or no image written")
+    onnx_cli = os.path.join(EXPORT_DIR, "cli_640.onnx")
+    yunet2onnx.main(["yunet_n", pth, "--output", onnx_cli, "--verify"],
+                    device=DEV)
+    with open(onnx_cli, "rb") as f, open(paths["static"], "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("yunet2onnx wrote another file than "
+                                 "export_onnx")
+    log(f"[export] CLIs: detect_image --fused --device-nms found "
+        f"{r['bboxes'].shape[0]} faces (the API too); yunet2onnx --verify "
+        "passed on the card, its file equal to export_onnx's")
+
+    # 6. the deployed file against the native program
+    rep["times_ms"] = {}
+    unfused = Detector(full, model, device=DEV, dtype=torch.float32)
+    for b, hw in ((1, 640), (16, 320)):
+        batch = np.stack([face_image(rng, hw, hw, 4) for _ in range(b)])
+        nhwc = torch.from_numpy(batch).to(DEV)
+        nchw = nhwc.permute(0, 3, 1, 2).float().contiguous()
+        progs = {"executor_f32": lambda: executors["dynamic"].run(nchw),
+                 "raw_f32": lambda: dets[torch.float32].raw(
+                     nhwc, conv_kernel=b == 1),
+                 "raw_bf16": lambda: dets[torch.bfloat16].raw(
+                     nhwc, conv_kernel=b == 1),
+                 "raw_unfused_f32": lambda: unfused.raw(
+                     nhwc, conv_kernel=False)}
+        t = {k: [] for k in progs}
+        for k in list(progs) + list(progs)[::-1]:
+            t[k].append(cuda_ms(progs[k]))
+        key = f"{hw}^2 b{b}"
+        rep["times_ms"][key] = t
+        log(f"[export] time {key}: " + ", ".join(
+            f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in t.items())
+            + (" (the imported raw on the K4 units)" if b == 1 else
+               " (the imported raw on the library convs)"))
+    rep["phase_s"] = time.perf_counter() - t0
+    log(f"[export] phase {rep['phase_s']:.1f} s")
+    return launches, rep
+
+
+def export_only():
+    """phase_export alone, for quick work on export and import:
+    python3 -c "import chip_smoke as s; s.export_only()" from the
+    repository root. Builds the kernels the path runs (convdp.cu, nms.cu)
+    and the host NMS."""
+    import torch
+    from yunet_tpu_torch import native
+    from yunet_tpu_torch.ops import convdp, nms
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    watchdog(WATCHDOG_S)
+    smi = nvidia_smi_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} | {smi}")
+    phase_build({"convdp.cu": convdp.LIB, "nms.cu": nms.LIB,
+                 "host_nms.cpp": native.LIB})
+    _, sd, _, _ = load_model()
+    launches, report = phase_export(sd)
+    log(f"[export] launches {launches}")
+    log(f"[export] {smi}: " + json.dumps(report))
+
+
 def _to_device(batch):
     import torch
     return {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}
@@ -2915,6 +3257,8 @@ def main() -> int:
     log(f"[fit] {smi}: " + json.dumps(fit_report))
     devaug_launches, devaug_report = phase(phase_device_aug, sd)
     log(f"[device_aug] {smi}: " + json.dumps(devaug_report))
+    export_launches, export_report = phase(phase_export, sd)
+    log(f"[export] {smi}: " + json.dumps(export_report))
     log(f"[phase] seconds {json.dumps(secs)}")
 
     kernels = [
@@ -2927,6 +3271,9 @@ def main() -> int:
          "launches_wider": wider_launches["greedy_nms"],
          # the eval hook of the training CLI (phase_fit)
          "launches_training_cli": fit_launches["greedy_nms"],
+         # the ONNX-imported Detector's detects and detect_image
+         # (phase_export)
+         "launches_export": export_launches["greedy_nms"],
          "max_abs_err": nms_err,
          # no single PyTorch call computes greedy NMS (no torchvision)
          "library_ms": None,
@@ -2949,6 +3296,10 @@ def main() -> int:
          # the training CLI's fused run (phase_fit)
          "launches_training_cli": fit_launches["fused_conv_dp"],
          "launches_mma_training_cli": fit_launches["fused_conv_dp_mma"],
+         # the ONNX-imported Detector's detects (f32 and bf16) and
+         # detect_image --fused (phase_export)
+         "launches_export": export_launches["fused_conv_dp"],
+         "launches_mma_export": export_launches["fused_conv_dp_mma"],
          "max_abs_err": conv_err["f32"],
          "bf16_excess": conv_err["bf16_excess"], **conv_t},
         {"name": "simota_streamed", "route": "cuda",

@@ -120,9 +120,22 @@ def test_port_imports_without_jax_or_cv2():
             "yunet_tpu_torch.data.dataset, yunet_tpu_torch.eval.eval_hook, "
             "yunet_tpu_torch.tools.train, yunet_tpu_torch.tools.smoke_data, "
             "yunet_tpu_torch.train.hooks, yunet_tpu_torch.utils.env, "
-            "yunet_tpu_torch.data.device_aug; "
+            "yunet_tpu_torch.data.device_aug, yunet_tpu_torch.export, "
+            "yunet_tpu_torch.export.proto, "
+            "yunet_tpu_torch.export.onnx_reader, "
+            "yunet_tpu_torch.export.cpp_export, "
+            "yunet_tpu_torch.export.onnx_export, "
+            "yunet_tpu_torch.export.onnx_import, "
+            "yunet_tpu_torch.export.onnx_runtime, "
+            "yunet_tpu_torch.export.tflite_export, "
+            "yunet_tpu_torch.tools.detect_image, "
+            "yunet_tpu_torch.tools.yunet2onnx, "
+            "yunet_tpu_torch.tools.yunet2cpp, "
+            "yunet_tpu_torch.tools.yunet2tflite, "
+            "yunet_tpu_torch.tools.get_flops, yunet_tpu_torch.utils.flops; "
             "bad = sorted(m for m in set(sys.modules) - before "
-            "if m.split('.')[0] in ('jax', 'cv2', 'yunet_tpu')); "
+            "if m.split('.')[0] in ('jax', 'cv2', 'yunet_tpu', "
+            "'tensorflow')); "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)

@@ -1,5 +1,5 @@
-"""yunet_tpu_torch — the YuNet serving path, WIDER Face evaluation and
-single-device training in PyTorch, for NVIDIA Hopper.
+"""yunet_tpu_torch — the YuNet serving path, WIDER Face evaluation,
+single-device training and export in PyTorch, for NVIDIA Hopper.
 
 A port of the JAX package ``yunet_tpu`` (which stays the numerical
 reference) to PyTorch. Module names follow ``yunet_tpu`` so each module's
@@ -24,7 +24,8 @@ Layout:
   csrc/            the CUDA sources and the host NMS source, built at
                    first use into _build/
   utils/           JAX-pytree / .npz / .pth parameter bridge; AutoRank;
-                   the logger and metrics.jsonl; the environment report
+                   the logger and metrics.jsonl; the environment report;
+                   the analytic MAC / parameter count (flops.py)
   data/            labelv2 parser, decoded-image (.npy) cache, the train
                    augmentations (crop, cv2-exact resize, flip), the
                    dataset, the forked-worker TrainLoader and the
@@ -32,14 +33,20 @@ Layout:
   eval/            Detector (preprocess -> forward -> decode -> NMS, the
                    WIDER sweep, TTA); the WIDER protocol and VOC mAP; the
                    in-training WIDER eval hook
+  export/          ONNX (own protobuf codec; files byte-equal to the JAX
+                   package's), the libfacedetection C++ weight file,
+                   TFLite (TensorFlow, imported lazily), the ONNX import
+                   into a folded tree, and a torch ONNX executor
   native.py        exact host greedy NMS and the WIDER matcher
                    (csrc/host_nms.cpp, a copy of the JAX package's source)
   apis.py          init_detector (also from a training checkpoint) /
                    inference_detector / train_detector / random seeds
   tools/           train (the training CLI; smoke_data for --smoke),
-                   test_widerface (WIDER val AP), make_synth_wider (GT
-                   .mat writer), bench_convdp_cm (channels-major ConvDP
-                   micro-bench)
+                   test_widerface (WIDER val AP), detect_image (one
+                   image; .npy without OpenCV), yunet2onnx / yunet2cpp /
+                   yunet2tflite / get_flops, make_synth_wider (GT .mat
+                   writer, base-tier renders), bench_convdp_cm
+                   (channels-major ConvDP micro-bench)
 
 Training on the CPU (the tests' way):
   from yunet_tpu_torch.tools.train import main

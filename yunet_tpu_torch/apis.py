@@ -36,15 +36,10 @@ def set_random_seed(seed: int) -> None:
     torch.manual_seed(seed)
 
 
-def init_detector(config: Union[str, Config],
-                  checkpoint: Optional[str] = None, *, device,
-                  dtype: torch.dtype = torch.bfloat16,
-                  fused: bool = False,
-                  trust_checkpoint: bool = False) -> Detector:
-    """Build a Detector on ``device`` from a preset name or Config and
+def read_weights(cfg: Config, checkpoint: str, *,
+                 trust_checkpoint: bool = False) -> Dict[str, torch.Tensor]:
+    """The ``YuNet`` state_dict (on the CPU) in ``checkpoint``:
 
-      * no checkpoint: random init from a ``torch.Generator`` seeded with
-        0 (drawn on the CPU, so every device gets the same weights);
       * a reference ``.pth`` checkpoint (loaded by module name, tensors
         only; ``trust_checkpoint=True`` allows a full unpickle, which runs
         code from the file);
@@ -56,23 +51,43 @@ def init_detector(config: Union[str, Config],
     """
     from .utils.jax_params import (load_flat_npz, load_pth_state_dict,
                                    state_dict_from_jax)
+    if os.path.isdir(checkpoint):
+        from .train.checkpoint import read_state
+        return read_state(checkpoint)["model"]
+    if checkpoint.endswith(".pth"):
+        return load_pth_state_dict(checkpoint, trusted=trust_checkpoint)
+    if checkpoint.endswith(".npz"):
+        return state_dict_from_jax(*load_flat_npz(checkpoint, cfg.model))
+    raise ValueError(f"unsupported checkpoint {checkpoint!r}: expected a "
+                     ".pth, a flat .npz or a checkpoint directory")
 
+
+def init_detector(config: Union[str, Config],
+                  checkpoint: Optional[str] = None, *, device,
+                  dtype: torch.dtype = torch.bfloat16,
+                  fused: bool = False,
+                  trust_checkpoint: bool = False) -> Detector:
+    """Build a Detector on ``device`` from a preset name or Config and
+
+      * no checkpoint: random init from a ``torch.Generator`` seeded with
+        0 (drawn on the CPU, so every device gets the same weights);
+      * an ``.onnx`` file (the reference's or export_onnx's): its
+        BN-folded weights drive a fused Detector that holds no model;
+      * any checkpoint ``read_weights`` reads.
+    """
     cfg = get_config(config) if isinstance(config, str) else config
     if checkpoint is None:
         model = YuNet(cfg.model, device=torch.device("cpu"),
                       generator=torch.Generator().manual_seed(0))
         return Detector(cfg, model, device=device, dtype=dtype, fused=fused)
-    if os.path.isdir(checkpoint):
-        from .train.checkpoint import read_state
-        sd = read_state(checkpoint)["model"]
-    elif checkpoint.endswith(".pth"):
-        sd = load_pth_state_dict(checkpoint, trusted=trust_checkpoint)
-    elif checkpoint.endswith(".npz"):
-        sd = state_dict_from_jax(*load_flat_npz(checkpoint, cfg.model))
-    else:
-        raise ValueError(f"unsupported checkpoint {checkpoint!r}: expected "
-                         "a .pth, a flat .npz or a checkpoint directory")
-    return Detector(cfg, sd, device=device, dtype=dtype, fused=fused)
+    if checkpoint.endswith(".onnx"):
+        from .export.onnx_import import load_onnx_params
+        return Detector(cfg, folded=load_onnx_params(
+            checkpoint, cfg.model, device=device), device=device,
+            dtype=dtype)
+    return Detector(cfg, read_weights(
+        cfg, checkpoint, trust_checkpoint=trust_checkpoint), device=device,
+        dtype=dtype, fused=fused)
 
 
 def inference_detector(detector: Detector,

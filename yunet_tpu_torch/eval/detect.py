@@ -118,23 +118,33 @@ class Detector:
     ConvDPUnit through the fused kernel (fastest at batch 1 on the TPU);
     ``detect_batch`` runs the folded units through the library convs, as
     the JAX serving program does.
+
+    folded: a pre-folded tree (``export/onnx_import.py:load_onnx_params``)
+    in place of a model: the detector then runs fused and holds no model
+    (``model_or_state`` is None, ``self.model`` too).
     """
 
-    def __init__(self, cfg: Config, model_or_state, *, device,
-                 dtype: torch.dtype = torch.bfloat16, fused: bool = False):
+    def __init__(self, cfg: Config, model_or_state=None, *, device,
+                 dtype: torch.dtype = torch.bfloat16, fused: bool = False,
+                 folded=None):
         if dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"dtype must be bf16 or f32, not {dtype}")
+        if (model_or_state is None) == (folded is None):
+            raise ValueError("give a model or state dict, or a folded tree")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = dtype
-        if isinstance(model_or_state, YuNet):
-            model = model_or_state.to(self.device)
-        else:
-            model = YuNet(cfg.model, device=self.device)
-            model.load_state_dict(model_or_state)
-        self.model = model.eval()
-        self.folded = (fold_inference_params(model, cfg.model)
-                       if fused else None)
+        self.model = None
+        self.folded = folded
+        if folded is None:
+            if isinstance(model_or_state, YuNet):
+                model = model_or_state.to(self.device)
+            else:
+                model = YuNet(cfg.model, device=self.device)
+                model.load_state_dict(model_or_state)
+            self.model = model.eval()
+            if fused:
+                self.folded = fold_inference_params(model, cfg.model)
         self._priors: Dict[Tuple[int, int], torch.Tensor] = {}
         # images whose device-NMS pre-NMS cap was saturated in the last
         # detect_batch(use_device_nms=True) call
@@ -143,8 +153,10 @@ class Detector:
     # -- device programs ---------------------------------------------------
     def priors(self, h: int, w: int) -> torch.Tensor:
         if (h, w) not in self._priors:
+            # canvases are padded to a multiple of 32: division is exact
+            strides = self.cfg.model.strides
             self._priors[(h, w)] = torch.from_numpy(grid_priors(
-                self.model.featmap_sizes(h, w), self.cfg.model.strides,
+                [(h // s, w // s) for s in strides], strides,
                 self.cfg.model.prior_offset)).to(self.device)
         return self._priors[(h, w)]
 

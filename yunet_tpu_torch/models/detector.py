@@ -9,7 +9,7 @@ img_norm_cfg is the identity, configs/yunet_n.py:27).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -76,10 +76,6 @@ class YuNet(nn.Module):
         return [m.permute(0, 2, 3, 1).reshape(m.shape[0], -1, m.shape[1])
                 for k in ("cls", "obj", "bbox", "kps") if k in outs
                 for m in outs[k]]
-
-    def featmap_sizes(self, h: int, w: int) -> List[Tuple[int, int]]:
-        # inputs are padded to a multiple of 32, so division is exact
-        return [(h // s, w // s) for s in self.cfg.strides]
 
     @property
     def num_params(self) -> int:
