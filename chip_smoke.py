@@ -28,7 +28,11 @@ with data.device_aug=true: 12 steps, a resume to 16 and 48 steps for the
 fed rate) and export and import (ONNX and C++ files written from the card's
 model, the files run through the torch ONNX executor on the card, the
 ONNX-imported fused Detector on the ConvDP and NMS kernels, the
-detect_image and yunet2onnx CLIs), shows through the launch counters that
+detect_image and yunet2onnx CLIs) and data-parallel training (spawned
+rank processes: two gloo ranks on the card against one process at twice
+the batch with GhostBN, the training CLI with --distributed in two ranks
+with a sharded bank and the gathered eval hook, NCCL at world size 1 and,
+with two cards, two NCCL ranks), shows through the launch counters that
 each path ran its kernels, and
 times kernels, their plain versions, library yardsticks and the paths
 with CUDA events. Any failed check raises, and the script exits
@@ -1985,6 +1989,512 @@ def device_aug_only():
     log(f"[device_aug] {smi}: " + json.dumps(report))
 
 
+# -- data-parallel training ------------------------------------------------
+
+DIST_DIR = os.path.join(ROOT, "work_dirs", "chip_dist")
+# phase 1: steps of the f32 comparison and of the bf16 pair on one batch;
+# the bf16 step time and the all_reduce's share over DIST_TIME_STEPS steps
+DIST_STEPS, DIST_TIME_STEPS = 4, 10
+DIST_CLI_STEPS, DIST_NCCL_STEPS = 8, 3
+DIST_BATCH, DIST_IMG = 16, 640          # a rank's rows, and the crop
+# 2 ranks against one process at 2x the batch with bn_group: JAX's own
+# mesh-against-one-device tolerances (tests/test_train_step.py:55-90,
+# 357-397)
+DIST_LOSS_RTOL, DIST_PARAM_TOL, DIST_STAT_TOL = 1e-4, (1e-3, 3e-5), (1e-4,
+                                                                      1e-6)
+# the gathered hook against one process's, bf16 (the port's bf16 band)
+DIST_AP_TOL = 0.02
+DIST_TIMEOUT_S = 420
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _dist_cfg(dtype, **train):
+    """yunet_n at full width, DIST_IMG crops and DIST_BATCH rows a rank (or
+    ``batch`` rows), in ``dtype`` with ``train`` on top."""
+    import dataclasses
+    from yunet_tpu_torch.config import yunet_n
+    cfg = yunet_n()
+    batch = train.pop("batch", DIST_BATCH)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, img_size=DIST_IMG,
+                                      samples_per_device=batch),
+        train=dataclasses.replace(cfg.train, bf16=dtype == "bf16", **train))
+
+
+def _dist_train(cfg, sd, mesh, batches, device):
+    """Steps of cfg from ``sd`` on ``device`` over host batches, this
+    rank's rows of each (all rows without a mesh), the launch counters
+    from zero: {metrics per step, state dict, EMA, launches} on the
+    CPU."""
+    import torch
+    from yunet_tpu_torch.parallel import shard_batch
+    from yunet_tpu_torch.train import init_train_state, make_train_step
+    world = mesh.size if mesh is not None else 1
+    ts, opt = init_train_state(
+        cfg, steps_per_epoch=1000,
+        total_batch=cfg.data.samples_per_device * world, device=device,
+        state_dict=sd)
+    step = make_train_step(cfg, ts.model, opt, img_size=cfg.data.img_size,
+                           mesh=mesh)
+    reset_launch_counts()
+    metrics = []
+    for b in batches:
+        ts, m = step(ts, {k: torch.from_numpy(v).to(device)
+                          for k, v in shard_batch(b, mesh).items()})
+        metrics.append(m)
+    _sync(device)
+    return {"metrics": [{k: float(v) for k, v in m.items()}
+                        for m in metrics],
+            "state": {k: v.cpu() for k, v in ts.model.state_dict().items()},
+            "ema": [e.cpu() for e in ts.ema] if ts.ema else None,
+            "launches": launch_counts(), "ts": ts, "step": step}
+
+
+def _dist_batches(path):
+    data = np.load(path)
+    keys = ("image", "gt_bboxes", "gt_labels", "gt_kps", "gt_valid")
+    return [{k: data[f"{k}{i}"] for k in keys} for i in range(DIST_STEPS)]
+
+
+def _dist_job_step(args):
+    """Phase 1 in a rank: the f32 comparison run (TF32 off, EMA on); then
+    the shipped bf16 config (warmup off) DIST_STEPS steps on the rank's
+    rows of the first batch, and its step time alone and with each
+    all_reduce timed (a synchronize either side)."""
+    import torch
+    import torch.distributed as dist
+    from yunet_tpu_torch.parallel import make_mesh, shard_batch
+    device = args["device"]
+    mesh = make_mesh(device, always=True)
+    sd = torch.load(args["sd"], weights_only=True)
+    batches = _dist_batches(args["batches"])
+    out = {"f32": _dist_train(_dist_cfg("f32", ema_momentum=0.9), sd, mesh,
+                              batches, device)}
+    bf = _dist_train(_dist_cfg("bf16", warmup_iters=0), sd, mesh,
+                     batches[:1] * DIST_STEPS, device)
+    ts, step = bf.pop("ts"), bf.pop("step")
+    rows = {k: torch.from_numpy(v).to(device)
+            for k, v in shard_batch(batches[1], mesh).items()}
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(DIST_TIME_STEPS):
+        step(ts, rows)
+    _sync(device)
+    bf["step_ms"] = (time.perf_counter() - t0) * 1e3 / DIST_TIME_STEPS
+    spent, reduce = [], dist.all_reduce
+
+    def timed(*a, **kw):
+        _sync(device)
+        t = time.perf_counter()
+        out = reduce(*a, **kw)
+        _sync(device)
+        spent.append(time.perf_counter() - t)
+        return out
+    dist.all_reduce = timed
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(DIST_TIME_STEPS):
+            step(ts, rows)
+        _sync(device)
+    finally:
+        dist.all_reduce = reduce
+    bf["timed_step_ms"] = (time.perf_counter() - t0) * 1e3 / DIST_TIME_STEPS
+    bf["all_reduce_ms"] = sum(spent) * 1e3 / DIST_TIME_STEPS
+    bf["all_reduces_a_step"] = len(spent) / DIST_TIME_STEPS
+    bf.pop("ema")
+    out["f32"].pop("ts")
+    out["f32"].pop("step")
+    out["bf16"] = bf
+    return out
+
+
+def _dist_job_cli(args):
+    """Phase 2 (and 3) in a rank: the training CLI through its main() with
+    args["argv"], the launch counters from zero; the rank's loader shard
+    and bank size, its checkpoint writes, the backend and world size fit
+    ran with."""
+    import torch.distributed as dist
+    from yunet_tpu_torch.tools import train as cli
+    from yunet_tpu_torch.train import checkpoint, loop
+    rec = {"writes": [], "loaders": [], "groups": []}
+    os.environ.update(args.get("env", {}))
+
+    def counted_write(write):
+        def wrapped(*a, **kw):
+            rec["writes"].append(os.path.basename(a[1]))
+            return write(*a, **kw)
+        return wrapped
+
+    def recorded_build(build):
+        def wrapped(*a, **kw):
+            loader = build(*a, **kw)
+            rec["loaders"].append((loader.process_index,
+                                   loader.process_count,
+                                   len(getattr(loader, "bank", ()))))
+            return loader
+        return wrapped
+
+    def recorded_fit(fit):
+        def wrapped(*a, **kw):
+            rec["groups"].append((dist.get_backend(), kw["mesh"].size))
+            return fit(*a, **kw)
+        return wrapped
+
+    restore = [_patched(checkpoint, "_write", counted_write),
+               _patched(loop, "build_loader", recorded_build),
+               _patched(loop, "fit", recorded_fit)]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        ts = cli.main(args["argv"], device=args.get("device"))
+    finally:
+        for r in restore:
+            r()
+    _sync(next(ts.model.parameters()).device)
+    rec["secs"] = time.perf_counter() - t0
+    rec["step"] = ts.step
+    rec["launches"] = launch_counts()
+    rec["group_destroyed"] = not dist.is_initialized()
+    return rec
+
+
+DIST_JOBS = {"step": _dist_job_step, "cli": _dist_job_cli}
+
+
+def _dist_rank(job, rank, world, init, out, args):
+    """A rank of phase_distributed, in a spawned process (it imports
+    yunet_tpu_torch only; the kernels were built by phase_build): joins
+    the group ``init`` names (args["backend"], on args["device"]) unless
+    ``init`` is None, runs DIST_JOBS[job] and saves its result to
+    ``out``. An exception exits the process non-zero."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if init is not None:
+        if args["backend"] == "nccl":
+            torch.cuda.set_device(args["device"])
+        dist.init_process_group(args["backend"], init_method=init, rank=rank,
+                                world_size=world)
+    try:
+        result = DIST_JOBS[job](args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.save(result, out)
+
+
+def run_ranks(job, rank_args, *, init=True, timeout=DIST_TIMEOUT_S):
+    """DIST_JOBS[job] in len(rank_args) spawned ranks (a FileStore group
+    unless ``init`` is False). Returns their results; a rank that exits
+    non-zero or overruns ``timeout`` fails the call, and every rank is
+    stopped before it returns."""
+    import multiprocessing as mp
+    import torch
+    world = len(rank_args)
+    tag = f"{job}-{time.monotonic_ns()}"
+    store = "file://" + os.path.join(DIST_DIR, f"{tag}.store")
+    outs = [os.path.join(DIST_DIR, f"{tag}.rank{r}.pt") for r in range(world)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank, args=(
+        job, r, world, store if init else None, outs[r], a))
+        for r, a in enumerate(rank_args)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"{job}: rank exit codes {codes} (a negative "
+                             f"code: killed at the {timeout} s timeout)")
+    # written by this run's own ranks
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _close(what, got, want, rtol, atol):
+    import torch
+    bad = ~((got - want).abs() <= atol + rtol * want.abs())
+    if bad.any():
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} of {want.numel()} values off, worst "
+            f"|diff| {float((got - want).abs().max()):.3g}")
+
+
+def _check_dist_run(label, got, want, param_names):
+    """One rank's f32 run against the one-process run, under the mesh
+    tolerances; returns the worst relative loss gap."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+        if g["num_pos"] != w["num_pos"]:
+            raise AssertionError(f"{label}: num_pos {g['num_pos']} != "
+                                 f"{w['num_pos']} at step {i}")
+        for k in ("loss", "loss_cls", "loss_obj", "loss_bbox", "loss_kps"):
+            gap = abs(g[k] - w[k]) / abs(w[k])
+            worst = max(worst, gap)
+            if gap > DIST_LOSS_RTOL:
+                raise AssertionError(f"{label}: {k} {g[k]} != {w[k]} at "
+                                     f"step {i}")
+    for k, v in want["state"].items():
+        if not v.is_floating_point():
+            continue
+        tol = DIST_PARAM_TOL if k in param_names else DIST_STAT_TOL
+        _close(f"{label}: {k}", got["state"][k], v, *tol)
+    for i, (g, w) in enumerate(zip(got["ema"], want["ema"])):
+        _close(f"{label}: EMA {i}", g, w, *DIST_PARAM_TOL)
+    return worst
+
+
+def fit_val_split():
+    """phase_fit's val split (phase_wider's draw), drawn when phase_fit
+    has not run: (labelv2 path, cache dir, GT dir)."""
+    root = os.path.join(FIT_DIR, "val")
+    paths = (os.path.join(root, "labelv2.txt"), os.path.join(root, "cache"),
+             os.path.join(root, "gt"))
+    return paths if os.path.exists(paths[0]) else wider_split(root)
+
+
+def phase_distributed(sd):
+    """Data-parallel training on the card, one process a rank (spawned;
+    each imports yunet_tpu_torch only and loads the kernels phase_build
+    built):
+
+      1. two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+         card), DIST_STEPS steps of yunet_n at DIST_IMG^2, DIST_BATCH rows
+         a rank, f32 with TF32 off and EMA on, from r04 on seeded
+         train_batch rows, against one process at 2 x DIST_BATCH with
+         train.bn_group=DIST_BATCH on the same rows: losses, num_pos,
+         params, EMA and BN statistics under the mesh tolerances, and 2
+         K1 launches a rank a step. Then the shipped bf16 config (warmup
+         off) on one batch: finite and falling losses, the ranks' states
+         torch.equal, the step time a rank and the all_reduce's share of
+         it (two ranks sharing one card: not a scaling figure);
+      2. the training CLI in the same two ranks (the group initialised by
+         the worker, main() joins it) with data.device_aug=true and
+         data.bank_sharded=true on phase_fit's 64-image split,
+         DIST_CLI_STEPS steps, checkpoints every epoch, the eval hook in
+         mode 0 with device NMS every 2 epochs. Checks: each rank's bank
+         holds its 32 images; rank 0 alone writes the checkpoints and
+         metrics.jsonl; 2 K1 launches a rank a step and K2/K3 launches on
+         each rank's shard of the sweep; the gathered APs equal one
+         process's test_widerface on the last checkpoint within
+         DIST_AP_TOL;
+      3. NCCL: the CLI with --distributed at world size 1 from torchrun's
+         environment variables (DIST_NCCL_STEPS --smoke steps); with two
+         or more cards, phase 1's f32 comparison in two NCCL ranks, one
+         card each.
+    Returns ({kernel: launches over the phase's ranks}, {report})."""
+    import shutil
+    import socket
+    import torch
+    from yunet_tpu_torch.tools import test_widerface
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    rng = np.random.RandomState(9)
+    batches = [train_batch(rng, 2 * DIST_BATCH, DIST_IMG)
+               for _ in range(DIST_STEPS)]
+    bpath = os.path.join(DIST_DIR, "batches.npz")
+    np.savez(bpath, **{f"{k}{i}": v for i, b in enumerate(batches)
+                       for k, v in b.items()})
+    sd_path = os.path.join(DIST_DIR, "r04.pt")
+    torch.save(sd, sd_path)
+    rep, launches = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # 1. the reference: one process at 2 x DIST_BATCH, bn_group=DIST_BATCH
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = _dist_train(_dist_cfg("f32", ema_momentum=0.9,
+                                batch=2 * DIST_BATCH, bn_group=DIST_BATCH),
+                      sd, None, batches, DEV)
+    param_names = {n for n, _ in one.pop("ts").model.named_parameters()}
+    one.pop("step")
+    torch.cuda.empty_cache()
+    ranks_args = {"device": DEV, "backend": "gloo", "sd": sd_path,
+                  "batches": bpath}
+    split_ann, split_cache = fit_train_split()
+    val_ann, val_cache, val_gt = fit_val_split()
+    pth = os.path.join(DIST_DIR, "r04_ema.pth")
+    torch.save({"state_dict": sd}, pth)
+    work = os.path.join(DIST_DIR, "cli")
+    argv = ["yunet_n", "--distributed", "--work-dir", work, "--load-pth",
+            pth, "--max-steps", str(DIST_CLI_STEPS), "--eval-interval", "2",
+            "--eval-mode", "0", "--eval-device-nms", "--eval-cache-dir",
+            val_cache, "--eval-ann", val_ann, "--eval-gt-dir", val_gt,
+            "--cfg-options", f"data.train_ann={split_ann}",
+            "data.train_img_prefix=" + os.path.join(FIT_DIR, "no_images"),
+            f"data.decoded_cache={split_cache}", "data.device_aug=true",
+            "data.bank_sharded=true", "train.checkpoint_interval=1",
+            "train.log_interval=2"]
+    t = time.perf_counter()
+    steps = run_ranks("step", [ranks_args, ranks_args])
+    rep["phase1_s"] = time.perf_counter() - t
+    worst = 0.0
+    for r, res in enumerate(steps):
+        got = res["f32"]
+        worst = max(worst, _check_dist_run(f"rank {r} f32", got, one,
+                                           param_names))
+        if got["launches"]["simota_streamed"] != 2 * DIST_STEPS:
+            raise AssertionError(f"rank {r}: K1 launches {got['launches']}")
+        add(got["launches"])
+        bf = res["bf16"]
+        losses = [m["loss"] for m in bf["metrics"]]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"rank {r} bf16: losses {losses}")
+        add(bf["launches"])
+    for k, v in steps[0]["bf16"]["state"].items():
+        if not torch.equal(v, steps[1]["bf16"]["state"][k]):
+            raise AssertionError(f"bf16: the ranks' {k} differ")
+    bf = [s["bf16"] for s in steps]
+    rep["f32_worst_loss_rel_gap"] = worst
+    rep["f32_losses"] = [m["loss"] for m in steps[0]["f32"]["metrics"]]
+    rep["bf16_losses"] = [m["loss"] for m in bf[0]["metrics"]]
+    rep["bf16_step_ms_a_rank"] = [b["step_ms"] for b in bf]
+    rep["bf16_timed_step_ms_a_rank"] = [b["timed_step_ms"] for b in bf]
+    rep["bf16_all_reduce_ms_a_rank"] = [b["all_reduce_ms"] for b in bf]
+    rep["all_reduces_a_step"] = bf[0]["all_reduces_a_step"]
+    rep["bf16_all_reduce_share"] = [b["all_reduce_ms"] / b["timed_step_ms"]
+                                    for b in bf]
+    log(f"[dist] 2 gloo ranks on {DEV} == one process at b"
+        f"{2 * DIST_BATCH} bn_group {DIST_BATCH} over {DIST_STEPS} f32 "
+        f"steps (worst loss gap {worst:.3g}); bf16 losses "
+        f"{[round(x, 4) for x in rep['bf16_losses']]}, ranks equal; a bf16 "
+        f"step {[round(x, 3) for x in rep['bf16_step_ms_a_rank']]} ms a "
+        f"rank, all_reduce {[round(x, 3) for x in rep['bf16_all_reduce_ms_a_rank']]}"
+        f" ms of {[round(x, 3) for x in rep['bf16_timed_step_ms_a_rank']]} "
+        f"({rep['all_reduces_a_step']:.0f} a step; two ranks share one "
+        "card: not a scaling figure)")
+
+    # 2. the CLI in two gloo ranks on one card
+    t = time.perf_counter()
+    cli = run_ranks("cli", [dict(ranks_args, argv=argv, device=DEV)] * 2)
+    rep["phase2_s"] = time.perf_counter() - t
+    n_ckpt = DIST_CLI_STEPS // 2     # 32 images a rank, 16 a step
+    want = [f"ckpt_{2 * (i + 1):08d}" for i in range(n_ckpt)]
+    if cli[0]["writes"] != want or cli[1]["writes"]:
+        raise AssertionError(f"checkpoint writes {cli[0]['writes']}, "
+                             f"{cli[1]['writes']}")
+    for r, res in enumerate(cli):
+        if res["loaders"] != [(r, 2, WIDER_IMAGES // 2)]:
+            raise AssertionError(f"rank {r}: loader {res['loaders']}")
+        if res["groups"] != [("gloo", 2)] or res["step"] != DIST_CLI_STEPS:
+            raise AssertionError(f"rank {r}: {res['groups']}, step "
+                                 f"{res['step']}")
+        lc = res["launches"]
+        if (lc["simota_streamed"] != 2 * DIST_CLI_STEPS
+                or lc["greedy_nms"] <= 0):
+            raise AssertionError(f"rank {r}: launches {lc}")
+        add(lc)
+    rows, vals = _metrics(work, "train"), _metrics(work, "val")
+    if [x["step"] for x in rows] != list(range(2, DIST_CLI_STEPS + 1, 2)):
+        raise AssertionError(f"logged steps {[x['step'] for x in rows]}")
+    if not all(np.isfinite(x["loss"]) for x in rows):
+        raise AssertionError("a logged loss is not finite")
+    if [v["step"] for v in vals] != [4, DIST_CLI_STEPS]:
+        raise AssertionError(f"val rows {vals}")
+    aps = [vals[-1][k] for k in ("easy", "medium", "hard")]
+    ckpt_aps = list(test_widerface.main([
+        "yunet_n", os.path.join(work, want[-1]), "--mode", "0",
+        "--device-nms", "--ann", val_ann, "--gt-dir", val_gt,
+        "--cache-dir", val_cache,
+        "--eval-log", os.path.join(DIST_DIR, "eval.log")], device=DEV))
+    gap = max(abs(a - b) for a, b in zip(aps, ckpt_aps))
+    if gap > DIST_AP_TOL:
+        raise AssertionError(f"gathered APs {aps} vs one process's "
+                             f"{ckpt_aps}")
+    rep.update({"cli_secs": [c["secs"] for c in cli], "cli_aps": aps,
+                "one_process_aps": ckpt_aps, "cli_ap_gap": gap,
+                "cli_img_s_per_interval": [x["imgs_per_sec"] for x in rows],
+                "cli_launches": [c["launches"] for c in cli]})
+    log(f"[dist] CLI, 2 gloo ranks, sharded bank (32 images a rank): "
+        f"{DIST_CLI_STEPS} steps, losses "
+        f"{[round(x['loss'], 4) for x in rows]}, img/s (both ranks) "
+        f"{[round(x['imgs_per_sec'], 2) for x in rows]}; gathered APs {aps} "
+        f"vs one process {ckpt_aps}; rank 0 wrote {cli[0]['writes']}; "
+        f"launches {rep['cli_launches']}")
+
+    # 3. NCCL
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    (nccl,) = run_ranks("cli", [{"env": env, "argv": [
+        "yunet_n", "--distributed", "--smoke", "--max-steps",
+        str(DIST_NCCL_STEPS), "--work-dir", os.path.join(DIST_DIR, "nccl"),
+        "--cfg-options", "train.log_interval=1"]}], init=False)
+    backend = "nccl" if torch.device(DEV).type == "cuda" else "gloo"
+    if (nccl["groups"] != [(backend, 1)] or not nccl["group_destroyed"]
+            or nccl["launches"]["simota_streamed"] != 2 * DIST_NCCL_STEPS):
+        raise AssertionError(f"NCCL world of one: {nccl}")
+    nrows = _metrics(os.path.join(DIST_DIR, "nccl"), "train")
+    if len(nrows) != DIST_NCCL_STEPS or not all(np.isfinite(x["loss"])
+                                                for x in nrows):
+        raise AssertionError(f"NCCL run rows {nrows}")
+    add(nccl["launches"])
+    rep["nccl_world_1_losses"] = [x["loss"] for x in nrows]
+    ran = [f"NCCL at world size 1 ({DIST_NCCL_STEPS} --smoke steps, "
+           "torchrun's variables)"]
+    if torch.cuda.device_count() >= 2:
+        pair = run_ranks("step", [
+            dict(ranks_args, backend="nccl", device=f"cuda:{r}")
+            for r in range(2)])
+        for r, res in enumerate(pair):
+            _check_dist_run(f"NCCL rank {r} f32", res["f32"], one,
+                            param_names)
+            add(res["f32"]["launches"])
+            add(res["bf16"]["launches"])
+        ran.append("2 NCCL ranks on 2 cards against one process")
+    else:
+        ran.append(f"2 NCCL ranks skipped: {torch.cuda.device_count()} "
+                   "card(s) on this host")
+    rep["nccl"] = ran
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dist] {'; '.join(ran)}: losses "
+        f"{[round(x, 4) for x in rep['nccl_world_1_losses']]}; phase "
+        f"{rep['phase_s']:.1f} s")
+    return launches, rep
+
+
+def distributed_only():
+    """phase_distributed alone, for quick work on data-parallel training:
+    python3 -c "import chip_smoke as s; s.distributed_only()" from the
+    repository root. Builds only the kernels the path runs (csrc/simota.cu,
+    csrc/nms.cu) and the host routines (csrc/host_nms.cpp), and draws
+    phase_fit's splits if they are not there."""
+    import torch
+    from yunet_tpu_torch import native
+    from yunet_tpu_torch.ops import nms, simota
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    watchdog(WATCHDOG_S)
+    smi = nvidia_smi_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} | {smi}")
+    phase_build({"simota.cu": simota.LIB, "nms.cu": nms.LIB,
+                 "host_nms.cpp": native.LIB})
+    _, sd, _, _ = load_model()
+    launches, report = phase_distributed(sd)
+    log(f"[dist] launches {launches}")
+    log(f"[dist] {smi}: " + json.dumps(report))
+
+
 # -- export and import -----------------------------------------------------
 
 EXPORT_DIR = os.path.join(ROOT, "work_dirs", "chip_export")
@@ -3259,6 +3769,8 @@ def main() -> int:
     log(f"[device_aug] {smi}: " + json.dumps(devaug_report))
     export_launches, export_report = phase(phase_export, sd)
     log(f"[export] {smi}: " + json.dumps(export_report))
+    dist_launches, dist_report = phase(phase_distributed, sd)
+    log(f"[dist] {smi}: " + json.dumps(dist_report))
     log(f"[phase] seconds {json.dumps(secs)}")
 
     kernels = [
@@ -3274,6 +3786,9 @@ def main() -> int:
          # the ONNX-imported Detector's detects and detect_image
          # (phase_export)
          "launches_export": export_launches["greedy_nms"],
+         # the gathered eval hook of the 2-rank CLI (phase_distributed),
+         # both ranks' shards of the sweep
+         "launches_distributed": dist_launches["greedy_nms"],
          "max_abs_err": nms_err,
          # no single PyTorch call computes greedy NMS (no torchvision)
          "library_ms": None,
@@ -3312,6 +3827,10 @@ def main() -> int:
          # the training CLI with data.device_aug=true: 12 steps, the
          # resume to 16 and 48 steps (phase_device_aug)
          "launches_device_aug": devaug_launches["simota_streamed"],
+         # data-parallel training (phase_distributed), summed over the
+         # ranks: 2 a rank a step in the f32 and bf16 pairs, the 2-rank
+         # CLI and the NCCL run
+         "launches_distributed": dist_launches["simota_streamed"],
          "max_abs_err": simota_err,
          # no single PyTorch call computes the SimOTA reductions
          "library_ms": None, **simota_t},

@@ -165,5 +165,8 @@ def test_hook_matches_jax_hook_origin_size(val, r04_sd):
 
 
 def test_hook_refuses_a_mesh(val):
-    with pytest.raises(NotImplementedError, match="M9"):
-        _hook(val, (640, 640), mesh=object())
+    """A mesh with no process group behind it is refused (the 2-rank hook:
+    tests/test_torch_parallel.py)."""
+    from yunet_tpu_torch.parallel import Mesh
+    with pytest.raises(ValueError, match="process group"):
+        _hook(val, (640, 640), mesh=Mesh(0, 2, torch.device("cpu")))

@@ -279,7 +279,7 @@ def test_load_onnx_params_rejects_unknown_head(tmp_path):
     path = _write(tmp_path, "m.onnx", export_onnx(model, cfg.model,
                                                   input_shape=(64, 64)))
     with pytest.raises(ValueError, match="unrecognized head"):
-        load_onnx_params(path, tcfg.yunet_s().model)
+        load_onnx_params(path, tcfg.yunet_s().model, device=CPU)
 
 
 @pytest.mark.parametrize("dynamic", [False, True])
@@ -356,7 +356,7 @@ def folded_detectors(tmp_path_factory):
                   export_onnx(model, cfg.model, input_shape=(64, 96)))
     jdet = JaxDetector(cfg, folded=jax_import(path, cfg.model), bf16=False)
     tdet = Detector(tcfg.yunet_n(), None, device=CPU, dtype=torch.float32,
-                    folded=load_onnx_params(path, cfg.model))
+                    folded=load_onnx_params(path, cfg.model, device=CPU))
     fdet = Detector(tcfg.yunet_n(), model, device=CPU, dtype=torch.float32,
                     fused=True)
     return jdet, tdet, fdet, path

@@ -12,7 +12,8 @@ yunet_tpu's, on the CPU:
     BN statistics, optimizer trace and count, EMA shadow, step and the
     step 3-4 losses;
   * the eval cadence of tests/test_loop.py, the finite-loss guard, the
-    refusal of a mesh, and one step of device-side augmentation;
+    refusal of a mesh without a process group, and one step of
+    device-side augmentation;
   * init_detector reads a checkpoint directory back to the same
     detections as the in-memory model.
 
@@ -281,13 +282,16 @@ def test_fit_raises_on_nan(tmp_path):
 
 
 def test_fit_refuses_a_mesh_and_device_aug(cached_split, tmp_path):
-    """A mesh is refused (M9); data.device_aug trains: the bank is staged
-    and one step runs on it (tests/test_torch_device_aug.py holds it to
-    JAX's)."""
+    """A mesh with no process group behind it is refused (data-parallel
+    fit: tests/test_torch_dist_cli.py); data.device_aug trains: the bank
+    is staged and one step runs on it (tests/test_torch_device_aug.py
+    holds it to JAX's)."""
+    from yunet_tpu_torch.parallel import Mesh
     cfg = tiny_cfg()
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(ValueError, match="process group"):
         fit(cfg, device="cpu", work_dir=str(tmp_path), max_steps=1,
-            mesh=object(), loader=_synthetic(SyntheticLoader, cfg))
+            mesh=Mesh(0, 2, torch.device("cpu")),
+            loader=_synthetic(SyntheticLoader, cfg))
     ann, prefix, cache = cached_split
     aug = dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, device_aug=True, train_ann=ann, train_img_prefix=prefix,

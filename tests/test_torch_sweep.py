@@ -89,11 +89,20 @@ def test_detect_sweep_matches_jax(detectors, fused, mode, use_device_nms):
 
 def test_detect_sweep_prefetch_and_order(detectors, caplog):
     """prefetch on and off give the same results in input order; the stale
-    hint logs the solo warning."""
+    hint logs the solo warning. caplog's handler is attached to the
+    package logger itself: a test run earlier in the same process may have
+    set it to propagate=False (utils/logging.py:get_logger), which hides
+    its records from the root logger caplog listens on (the fix of
+    tests/test_detect.py's order-dependent flake)."""
     _, tdet = detectors[False]
     mode = (96, 64)
-    with caplog.at_level(logging.WARNING, logger="yunet_tpu_torch"):
-        on = tdet.detect_sweep(_entries(mode), mode, batch_size=4)
+    logger = logging.getLogger("yunet_tpu_torch")
+    logger.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.WARNING, logger="yunet_tpu_torch"):
+            on = tdet.detect_sweep(_entries(mode), mode, batch_size=4)
+    finally:
+        logger.removeHandler(caplog.handler)
     off = tdet.detect_sweep(_entries(mode), mode, batch_size=4,
                             prefetch=False)
     solo = tdet.detect(_entries(mode)[-1][0](), mode=mode)

@@ -1,9 +1,9 @@
 """The port's training CLI (python -m yunet_tpu_torch.tools.train) against
 tools/train.py: the same options and defaults, the same --smoke data, a
 --smoke run that trains and checkpoints on the CPU, the in-training eval
-through the CLI's options, and the refusal of --distributed. Both CLIs
-log through their fit; tests/test_torch_loop.py holds the two fits' log
-lines equal."""
+through the CLI's options, and --distributed's refusal without a group.
+Both CLIs log through their fit; tests/test_torch_loop.py holds the two
+fits' log lines equal."""
 
 import argparse
 import json
@@ -46,7 +46,8 @@ def test_parse_args_takes_every_jax_option(monkeypatch):
         b = ours[dest]
         assert (b.option_strings, b.nargs, b.default, b.type, b.const) == \
             (a.option_strings, a.nargs, a.default, a.type, a.const), dest
-    assert set(ours) - set(theirs) == {"eval_cache_dir"}
+    # the port's own: the eval image cache, and where to train
+    assert set(ours) - set(theirs) == {"eval_cache_dir", "device"}
     args = cli.parse_args(["yunet_s", "--auto-resume", "--eval-interval",
                            "2", "--cfg-options", "train.lr=0.02",
                            "data.workers=8"])
@@ -98,9 +99,14 @@ def test_cli_eval_hook_on_the_cache(tmp_path):
     assert all(0 <= vals[0][k] <= 1 for k in ("easy", "medium", "hard"))
 
 
-def test_distributed_raises():
+def test_distributed_raises(monkeypatch):
+    """--distributed with neither a process group nor torchrun's
+    environment raises, naming what is missing (2 ranks:
+    tests/test_torch_dist_cli.py)."""
     from yunet_tpu_torch.tools import train as cli
-    with pytest.raises(NotImplementedError, match="M9"):
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun.*RANK, WORLD_SIZE"):
         cli.main(["yunet_n", "--distributed", "--smoke"], device="cpu")
 
 

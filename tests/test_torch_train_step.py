@@ -406,8 +406,12 @@ def test_seeded_init_trains_and_unported_options_raise():
     ts, m, aux = step(ts, aug, return_aux=True)
     assert np.isfinite(float(m["loss"])) and ts.step == 9
     assert aux["targets"]["fg"].shape[0] == 2
-    with pytest.raises(NotImplementedError, match="M9"):
-        make_train_step(tcfg, ts.model, opt, img_size=IMG, mesh=object())
+    # a mesh with no process group behind it (2 ranks:
+    # tests/test_torch_parallel.py)
+    from yunet_tpu_torch.parallel import Mesh
+    with pytest.raises(ValueError, match="process group"):
+        make_train_step(tcfg, ts.model, opt, img_size=IMG,
+                        mesh=Mesh(0, 2, torch.device("cpu")))
 
 
 def test_train_path_imports_without_jax_and_reads_no_jax_file():

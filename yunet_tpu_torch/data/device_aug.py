@@ -1,5 +1,5 @@
 """Card-staged dataset with on-card augmentation — the counterpart of
-``yunet_tpu/data/device_aug.py``, one card.
+``yunet_tpu/data/device_aug.py``.
 
 The decoded dataset is staged into card memory ONCE, and a step's input
 pipeline is:
@@ -16,9 +16,12 @@ Staging resizes each image so its short side is ``bank_size`` (the long
 side capped by the canvas) with ``ops/resize.py:resize_area``, byte-equal
 to JAX's ``cv2.resize(..., INTER_AREA)``, so the port's bank is JAX's.
 Card memory: N x canvas^2 x 3 bytes (real WIDER train, 12,880 images at
-1152^2, is ~51 GB). A bank sharded over several cards waits for data
-parallelism (ROADMAP M9): ``device_shards`` here only indexes the host
-side as JAX does.
+1152^2, is ~51 GB). Under data parallelism (``data.bank_sharded=true``,
+one card a rank) each rank builds and stages only its own record shard,
+``records[rank::world]``, and samples it with shard-local indices, so a
+card holds 1/world of the bank; ``device_shards`` stays 1, since a
+process holds one card (JAX splits a process's shard once more over its
+local chips).
 """
 
 from __future__ import annotations
@@ -114,9 +117,9 @@ class ImageBank:
             f"({len(self.images)} images x {self.canvas}^2 x 3 B) but only "
             f"{free / 1e9:.2f} GB of {limit / 1e9:.2f} GB device memory is "
             f"free (budget {budget / 1e9:.2f} GB with scratch headroom). "
-            "Options: (a) data.bank_sharded=true shards the bank over "
-            "several cards with shard-local sampling (needs data-parallel "
-            "training, not ported yet: ROADMAP M9); (b) reduce "
+            "Options: (a) data.bank_sharded=true with data-parallel "
+            "training (--distributed, one card a rank) shards the bank over "
+            "the ranks' cards with shard-local sampling; (b) reduce "
             "data.bank_canvas / data.bank_size; (c) data.device_aug=false "
             "uses the host pipeline (no device memory cost, needs host "
             "decode and copy bandwidth).")
@@ -404,8 +407,9 @@ class DeviceAugLoader:
     device_shards > 1: this host's records split into ``device_shards``
     equal sub-shards, batch slot j sampling from sub-shard
     j // (batch / device_shards) with a SUB-SHARD-LOCAL index, as JAX
-    indexes a bank sharded over its cards (the training step takes one
-    card's bank until ROADMAP M9)."""
+    indexes a bank sharded over a process's local cards. The port runs one
+    card a process, so its training path passes 1; the bank is sharded
+    over processes by ``process_index``/``process_count``."""
 
     def __init__(self, ann_file: str, img_prefix: str, *,
                  batch_size: int, spec: SampleSpec, seed: int = 0,

@@ -24,7 +24,7 @@ from .onnx_reader import read_onnx
 
 
 def load_onnx_params(path: str, cfg: ModelConfig, *,
-                     device="cpu") -> Dict[str, Any]:
+                     device) -> Dict[str, Any]:
     """The folded tree of ``fold_inference_params``' topology on
     ``device``: FoldedUnits (w1 (Cin, Cout), wd (9, Cout) tap-major, f32)
     and the stem conv OIHW."""

@@ -1,5 +1,6 @@
 """Train YuNet on WIDER Face with the port — counterpart of
-``tools/train.py``: the same options and the same log, on one device.
+``tools/train.py``: the same options and the same log, on one card or
+data-parallel with one process a card (``--distributed``).
 
   python -m yunet_tpu_torch.tools.train yunet_n
   python -m yunet_tpu_torch.tools.train yunet_s --work-dir work_dirs/s \\
@@ -15,8 +16,17 @@ A host without OpenCV reads training images from the decoded ``.npy``
 cache (``data.decoded_cache``, built by ``data/cache.py``) and eval images
 from ``--eval-cache-dir``. ``data.device_aug=true`` stages the decoded
 train set in card memory once and crops it on the card each step
-(data/device_aug.py). Data-parallel training (``--distributed``) is not
-ported yet and raises; ``--single-device`` is accepted.
+(data/device_aug.py).
+
+Data parallel: ``yunet_tpu_torch/tools/dist_train.sh yunet_n [options]``
+starts one rank a card through torchrun, each with ``--distributed``,
+which joins the process group (an initialised one, or torchrun's
+environment: NCCL on the cards, gloo for ``--device cpu``) and trains
+each rank on cuda:LOCAL_RANK. The global batch is
+data.samples_per_device times the world size.
+
+  NPROC=8 yunet_tpu_torch/tools/dist_train.sh yunet_n \\
+      --cfg-options data.decoded_cache=data/widerface/train_cache
 """
 
 import argparse
@@ -33,16 +43,21 @@ def parse_args(argv=None):
                    help="initialize weights from a reference .pth")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--diff-seed", action="store_true",
-                   help="mix the process index into the data seed "
-                   "(reference --diff-seed; one process here: index 0)")
+                   help="add the rank to the seed (reference --diff-seed)")
     p.add_argument("--sample-stats", action="store_true",
                    help="dump a GT-size histogram at the end "
                    "(YuNetSampleSizeStatisticsHook)")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--single-device", action="store_true",
-                   help="one device (the only mode of the port)")
+                   help="no data parallelism, even in a process group")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported yet: raises)")
+                   help="data-parallel training, one process a card: "
+                   "join the process group (torchrun's environment, see "
+                   "tools/dist_train.sh)")
+    p.add_argument("--device", default=None,
+                   help="where to train (default: cuda, or "
+                   "cuda:LOCAL_RANK with --distributed); cpu trains on the "
+                   "CPU (gloo between ranks)")
     p.add_argument("--smoke", action="store_true",
                    help="20 steps on synthetic data (no dataset needed)")
     p.add_argument("--cfg-options", nargs="*", default=[],
@@ -75,49 +90,73 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None, *, device="cuda"):
+def main(argv=None, *, device=None):
     """Train; returns the final TrainState. ``device``: where the model
-    trains and the eval hook sweeps (the tests pass the CPU)."""
+    trains and the eval hook sweeps (the tests pass the CPU); it overrides
+    ``--device``. With ``--distributed`` each rank trains on its card
+    unless a device is named, and the process group is destroyed at the
+    end if this call created it."""
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError("multi-process training (--distributed) "
-                                  "is not ported yet: ROADMAP M9")
+    import torch.distributed as dist
+
     from ..config import apply_overrides, get_config, validate_config
+    from ..parallel.mesh import initialize_distributed, local_device, make_mesh
     from ..train.loop import fit
 
-    cfg = get_config(args.config)
-    cfg = apply_overrides(cfg, args.cfg_options)
-    cfg = validate_config(cfg, force_experimental=args.force_experimental)
-    if args.seed is not None:
-        cfg = dataclasses.replace(
-            cfg, train=dataclasses.replace(cfg.train, seed=args.seed))
-    # --diff-seed adds the process index, which is 0 in one process
+    device = device if device is not None else args.device
+    created = False
+    if args.distributed:
+        device = local_device(device)
+        created = initialize_distributed(device=device)
+    elif device is None:
+        device = "cuda"
+    try:
+        cfg = get_config(args.config)
+        cfg = apply_overrides(cfg, args.cfg_options)
+        cfg = validate_config(cfg, force_experimental=args.force_experimental)
+        # every rank of the group trains data-parallel (also a world of
+        # one, so that its collectives run) unless --single-device
+        mesh = (make_mesh(device, always=True)
+                if args.distributed and not args.single_device else None)
+        if args.seed is not None:
+            cfg = dataclasses.replace(
+                cfg, train=dataclasses.replace(cfg.train, seed=args.seed))
+        if args.diff_seed and args.distributed:
+            cfg = dataclasses.replace(
+                cfg, train=dataclasses.replace(
+                    cfg.train, seed=cfg.train.seed + dist.get_rank()))
 
-    loader = None
-    max_steps = args.max_steps
-    if args.smoke:
-        from .smoke_data import SyntheticLoader
-        loader = SyntheticLoader(cfg,
-                                 batch_size=cfg.data.samples_per_device)
-        max_steps = max_steps or 20
+        loader = None
+        max_steps = args.max_steps
+        if args.smoke:
+            from .smoke_data import SyntheticLoader
+            # each rank's loader gives its own rows: the per-rank batch
+            loader = SyntheticLoader(cfg,
+                                     batch_size=cfg.data.samples_per_device)
+            max_steps = max_steps or 20
 
-    eval_hook = None
-    if args.eval_interval > 0:
-        from ..eval.eval_hook import make_wider_eval_hook, widerface_eval_mode
-        eval_hook = make_wider_eval_hook(
-            cfg, device=device, mode=widerface_eval_mode(args.eval_mode),
-            ann=args.eval_ann, img_prefix=args.eval_img_prefix,
-            gt_dir=args.eval_gt_dir, limit=args.eval_limit,
-            also_raw=args.eval_both_params,
-            use_device_nms=args.eval_device_nms,
-            cache_dir=args.eval_cache_dir)
+        eval_hook = None
+        if args.eval_interval > 0:
+            from ..eval.eval_hook import (make_wider_eval_hook,
+                                          widerface_eval_mode)
+            eval_hook = make_wider_eval_hook(
+                cfg, device=device, mode=widerface_eval_mode(args.eval_mode),
+                ann=args.eval_ann, img_prefix=args.eval_img_prefix,
+                gt_dir=args.eval_gt_dir, limit=args.eval_limit, mesh=mesh,
+                also_raw=args.eval_both_params,
+                use_device_nms=args.eval_device_nms,
+                cache_dir=args.eval_cache_dir)
 
-    return fit(cfg, device=device, work_dir=args.work_dir,
-               resume_from=args.resume_from, auto_resume=args.auto_resume,
-               load_pth=args.load_pth, max_steps=max_steps, loader=loader,
-               eval_hook=eval_hook,
-               eval_interval_epochs=args.eval_interval,
-               sample_stats=args.sample_stats)
+        return fit(cfg, device=device, work_dir=args.work_dir,
+                   resume_from=args.resume_from,
+                   auto_resume=args.auto_resume, load_pth=args.load_pth,
+                   max_steps=max_steps, mesh=mesh, loader=loader,
+                   eval_hook=eval_hook,
+                   eval_interval_epochs=args.eval_interval,
+                   sample_stats=args.sample_stats)
+    finally:
+        if created:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

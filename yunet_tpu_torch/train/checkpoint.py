@@ -12,6 +12,9 @@ and BN running statistics), the SGD momentum trace and its count (the LR
 schedule reads the count), the EMA shadow and ``TrainState.step`` (the EMA
 warmup reads it). JAX keeps its optimizer state inside the TrainState; the
 port's optimizer is a separate object, so save and load take it too.
+Under data parallelism every rank holds the same state: rank 0 writes it
+and every rank waits for the write (yunet_tpu/train/checkpoint.py:77),
+and auto-resume reads the same ``latest`` on every rank.
 Weight-only init from a reference ``.pth`` is
 ``utils/jax_params.py:load_pth_state_dict``.
 """
@@ -27,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import Mesh, barrier
 from .step import SGDMomentum, TrainState
 
 STATE_FILE = "state.pt"
@@ -54,10 +58,21 @@ def _host(tensors):
 
 
 def save_checkpoint(work_dir: str, ts: TrainState, opt: SGDMomentum, *,
-                    epoch: int, meta: Optional[Dict[str, Any]] = None
-                    ) -> str:
+                    epoch: int, meta: Optional[Dict[str, Any]] = None,
+                    mesh: Optional[Mesh] = None) -> str:
+    """Write ``ts`` and ``opt`` to ``work_dir/ckpt_{step}`` and point
+    ``latest`` at it; returns the directory. With a mesh rank 0 writes and
+    every rank returns once the write is done."""
+    path = _ckpt_dir(work_dir, int(ts.step))
+    if mesh is None or mesh.rank == 0:
+        _write(work_dir, path, ts, opt, epoch, meta)
+    barrier(mesh)
+    return path
+
+
+def _write(work_dir: str, path: str, ts: TrainState, opt: SGDMomentum,
+           epoch: int, meta: Optional[Dict[str, Any]]) -> None:
     step = int(ts.step)
-    path = _ckpt_dir(work_dir, step)
     os.makedirs(path, exist_ok=True)
     state = {"model": {k: v.detach().cpu()
                        for k, v in ts.model.state_dict().items()},
@@ -74,7 +89,6 @@ def save_checkpoint(work_dir: str, ts: TrainState, opt: SGDMomentum, *,
         json.dump(info, f)
     with open(os.path.join(work_dir, "latest"), "w") as f:
         f.write(path)
-    return path
 
 
 def find_latest_checkpoint(work_dir: str) -> Optional[str]:

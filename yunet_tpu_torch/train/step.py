@@ -13,8 +13,15 @@ The model's parameters and BN running statistics are updated in place:
 ``TrainState`` holds the model, the step count and the EMA shadow, the
 optimizer holds its momentum trace. A batch that holds a ``bank`` (the
 card-staged dataset, data/device_aug.py) carries crop geometry in place of
-images, and the step resamples them on the bank's device. Data
-parallelism (a ``mesh``) is not ported yet.
+images, and the step resamples them on the bank's device.
+
+With a ``mesh`` (parallel/mesh.py: one rank a card) the step is JAX's
+``shard_map`` body, its collectives as all_reduces: each rank computes
+the loss on its own rows with local BN statistics, ``num_pos`` is summed
+over the ranks before the normalizer (the reference's reduce_mean), and
+the gradients, the BN running statistics and the loss metrics are
+averaged in one all_reduce before the update, so clipping sees the mean
+gradient as optax does after ``pmean``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from ..models.detector import YuNet
 from ..ops.boxes import bbox_decode, kps_encode
 from ..ops.losses import bce_with_logits, eiou, smooth_l1
 from ..ops.priors import grid_priors
+from ..parallel.mesh import Mesh, broadcast_, unflatten_into_
 from .ema import ema_update, exp_momentum
 from .lr import lr_schedule, scale_lr
 from .targets import build_targets_batched
@@ -119,13 +127,15 @@ def init_train_state(cfg: Config, *, steps_per_epoch: int, total_batch: int,
 
 
 def loss_fn(model: YuNet, cfg: Config, batch: Dict[str, torch.Tensor],
-            priors: torch.Tensor):
+            priors: torch.Tensor, mesh: Optional[Mesh] = None):
     """Returns (total_loss, metrics, aux). batch holds JAX-layout tensors
     on the model's device: image (B, H, W, 3), gt_bboxes (B, G, 4),
     gt_labels (B, G), gt_kps (B, G, K, 3), gt_valid (B, G) bool. aux
     holds the targets and the detached inputs they were built from
     (cls, obj, decoded). The model runs in its current mode; in training
-    mode its BN running statistics update in place."""
+    mode its BN running statistics update in place. With a mesh the
+    positives are summed over the ranks (one all_reduce) and
+    metrics["num_pos"] is that sum; the losses stay this rank's."""
     images = batch["image"]
     images = images.to(torch.bfloat16 if cfg.train.bf16 else torch.float32)
     # NCHW for the library trunk; the fused trunk (train.fused_kernels)
@@ -159,7 +169,17 @@ def loss_fn(model: YuNet, cfg: Config, batch: Dict[str, torch.Tensor],
     g = cfg.train.bn_group
     ng = b_local // g if 0 < g < b_local else 1
     local_pos = tgt["num_pos"].sum()
-    n = ng * torch.clamp(local_pos / ng, min=1.0)
+    if mesh is None:
+        global_pos = local_pos
+        num_pos = local_pos / ng
+    else:
+        # the reference normalizer: the mean over replicas of their
+        # positives (reduce_mean at yunet_head.py:493-497), pmean as psum
+        # over the world size
+        global_pos = local_pos.clone()
+        torch.distributed.all_reduce(global_pos)
+        num_pos = global_pos / mesh.size / ng
+    n = ng * torch.clamp(num_pos, min=1.0)
 
     fg = tgt["fg"].float()                            # (B, P)
     loss_cls = (bce_with_logits(cls_l, tgt["cls"]).sum(-1) * fg).sum() / n
@@ -186,7 +206,7 @@ def loss_fn(model: YuNet, cfg: Config, batch: Dict[str, torch.Tensor],
         ("loss", total), ("loss_cls", loss_cls), ("loss_obj", loss_obj),
         ("loss_bbox", cfg.loss.bbox_weight * loss_bbox),
         ("loss_kps", cfg.loss.kps_weight * loss_kps),
-        ("num_pos", local_pos))}
+        ("num_pos", global_pos))}
     aux = {"targets": tgt, "cls": cls_l.detach(), "obj": obj_l.detach(),
            "decoded": decoded.detach()}
     return total, metrics, aux
@@ -221,29 +241,44 @@ def _resampled(cfg: Config, batch, img_size: int, device) -> dict:
 
 
 def make_train_step(cfg: Config, model: YuNet, opt: SGDMomentum, *,
-                    img_size: int, mesh=None):
+                    img_size: int, mesh: Optional[Mesh] = None):
     """The train step for ``model`` (the TrainState's) on its device:
     ``step(ts, batch) -> (ts, metrics)``, or ``(ts, metrics, aux)`` with
     ``return_aux=True`` (loss_fn's aux). The batch's arrays (numpy or
     tensors, JAX layout) are moved to the model's device. The model,
-    optimizer and EMA shadow are updated in place and ts.step advances."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training (a mesh) is not "
-                                  "ported yet: ROADMAP M9")
+    optimizer and EMA shadow are updated in place and ts.step advances.
+
+    With a ``mesh`` the batch is this rank's rows; the first call
+    broadcasts rank 0's parameters, BN statistics, EMA shadow and momentum
+    trace, so every rank starts from one state, and every step ends with
+    the same update on every rank (metrics: the losses averaged over the
+    ranks, num_pos summed)."""
     device = next(model.parameters()).device
+    if mesh is not None:
+        mesh.check()
     sizes = [(img_size // s, img_size // s) for s in cfg.model.strides]
     priors = torch.from_numpy(grid_priors(
         sizes, cfg.model.strides, cfg.model.prior_offset)).to(device)
     params = list(model.parameters())
+    # the BN running statistics (the integer batch counters stay as they
+    # are: train mode never reads them)
+    stats = [b for b in model.buffers() if b.is_floating_point()]
+    synced = [mesh is None]
 
     def step(ts: TrainState, batch, *, return_aux: bool = False):
+        if not synced[0]:
+            broadcast_(params + stats + (ts.ema or []) + (opt.trace or []),
+                       mesh)
+            synced[0] = True
         if "bank" in batch:
             batch = _resampled(cfg, batch, img_size, device)
         batch = {k: torch.as_tensor(batch[k]).to(device) for k in BATCH_KEYS}
         model.train()
-        total, metrics, aux = loss_fn(model, cfg, batch, priors)
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        opt.update(params, list(grads))
+        total, metrics, aux = loss_fn(model, cfg, batch, priors, mesh)
+        grads = list(torch.autograd.grad(total, params, allow_unused=True))
+        if mesh is not None:
+            grads, metrics = _pmean(grads, params, stats, metrics, mesh)
+        opt.update(params, grads)
         if ts.ema is not None:
             # ExpMomentumEMA warmup (reference core/hook/ema.py:103-113)
             ema_update(ts.ema, params,
@@ -252,3 +287,24 @@ def make_train_step(cfg: Config, model: YuNet, opt: SGDMomentum, *,
         return (ts, metrics, aux) if return_aux else (ts, metrics)
 
     return step
+
+
+def _pmean(grads, params, stats, metrics, mesh: Mesh):
+    """JAX's ``pmean`` of the gradients, the new BN state and the metrics
+    (yunet_tpu/train/step.py:226-230) as ONE all_reduce over a flat
+    buffer: returns (mean gradients, metrics with the losses averaged);
+    the BN running statistics are averaged in place. A BN-covered bias's
+    missing gradient goes in as zeros, so it keeps its decay.
+    metrics["num_pos"] is already the sum over the ranks."""
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    keys = [k for k in metrics if k != "num_pos"]
+    flat = torch.cat([t.reshape(-1) for t in grads + stats]
+                     + [torch.stack([metrics[k] for k in keys])])
+    torch.distributed.all_reduce(flat)
+    flat.div_(mesh.size)
+    mean = [torch.empty_like(g) for g in grads]
+    unflatten_into_(flat, mean + stats)
+    avg = flat[-len(keys):]
+    metrics = {**metrics, **{k: avg[i] for i, k in enumerate(keys)}}
+    return mean, metrics
