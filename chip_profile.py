@@ -36,39 +36,10 @@ import time
 import numpy as np
 
 import chip_smoke as cs
+from yunet_tpu_torch.utils.trace_profile import device_rows, port_kernels
 
 CALLS, WARMUP, TOP = 20, 5, 15
 OUT = os.path.join(cs.ROOT, "chiprun_out", "chip_profile.json")
-
-
-def device_rows(prof, calls):
-    """(name, device ms per call, launches per call) of every device
-    kernel in the profile, largest first."""
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA":
-            continue
-        dt = getattr(e, "device_time_total", None)
-        if dt is None:
-            dt = e.cuda_time_total
-        if dt:
-            rows.append((e.key, dt / calls / 1e3, e.count / calls))
-    return sorted(rows, key=lambda r: -r[1])
-
-
-def port_kernels(rows):
-    """{kernel: (device ms per call, launches per call)} of the port's own
-    kernels (csrc/, each in an anonymous namespace), summed over their
-    template instantiations."""
-    out = {}
-    for key, ms, n in rows:
-        if "at::native" in key or "(anonymous namespace)::" not in key:
-            continue
-        name = key.split("(anonymous namespace)::")[1].split("<")[0]
-        name = name.split("(")[0]
-        ms0, n0 = out.get(name, (0.0, 0.0))
-        out[name] = (ms0 + ms, n0 + n)
-    return out
 
 
 def profile_program(fn, calls=CALLS, warmup=WARMUP):

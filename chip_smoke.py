@@ -32,8 +32,11 @@ detect_image and yunet2onnx CLIs) and data-parallel training (spawned
 rank processes: two gloo ranks on the card against one process at twice
 the batch with GhostBN, the training CLI with --distributed in two ranks
 with a sharded bank and the gathered eval hook, NCCL at world size 1 and,
-with two cards, two NCCL ranks), shows through the launch counters that
-each path ran its kernels, and
+with two cards, two NCCL ranks) and the profiling and check tools
+(verify_device_kernels on every kernel, profile_serve and
+profile_train_step, bench_train_step, validate_training on its fixture,
+tools/test.py on the card against the CPU), shows through the launch
+counters that each path ran its kernels, and
 times kernels, their plain versions, library yardsticks and the paths
 with CUDA events. Any failed check raises, and the script exits
 non-zero. There is no CPU path: without a CUDA device it exits non-zero
@@ -632,37 +635,6 @@ def _convdp_unit_times(x, w1, b1, wd, bd, relu, **timing):
             + (cin * cout + 11 * cout) * 4, 2 * n * h * w * cout * (cin + 10))
 
 
-def _check_convdp_bf16(label, x, w1, b1, wd, bd, relu):
-    """One bf16 ConvDP kernel call against its plain version: bf16_excess
-    within BF16_EXCESS_LIMIT; on the tensor-core route (its counter rises
-    by one) where the channels allow; a second call bit-equal. Returns
-    (excess, elements more than one bf16 ulp off)."""
-    import torch
-    from yunet_tpu_torch.ops.convdp import (BF16_EXCESS_LIMIT, bf16_excess,
-                                            fused_conv_dp,
-                                            fused_conv_dp_plain, ulp_bf16)
-    before = fused_conv_dp.launches_mma
-    got = fused_conv_dp(x, w1, b1, wd, bd, relu=relu)
-    if fused_conv_dp.launches_mma != before + int(max(w1.shape) <= 64):
-        raise AssertionError(f"ConvDP {label} bf16: not on the tensor-core "
-                             "route")
-    again = fused_conv_dp(x, w1, b1, wd, bd, relu=relu)
-    want = fused_conv_dp_plain(x, w1, b1, wd, bd, relu=relu)
-    torch.cuda.synchronize()
-    if not torch.equal(got, again):
-        raise AssertionError(f"ConvDP {label} bf16: two calls differ")
-    excess = bf16_excess(got, want, x, w1, b1, wd)
-    g, t = got.float(), want.float()
-    over = int(((g - t).abs() > ulp_bf16(torch.maximum(g.abs(), t.abs())))
-               .sum())
-    if not excess <= BF16_EXCESS_LIMIT:
-        raise AssertionError(f"ConvDP kernel != plain (bf16) at {label}: "
-                             f"excess {excess} units of 2^-24 S (limit "
-                             f"{BF16_EXCESS_LIMIT}), {over} elements over "
-                             "one ulp")
-    return excess, over
-
-
 def phase_convdp(folded, cfg, bsz=16):
     """The ConvDP kernel against its plain version at every unit shape of
     yunet_n's b1 fused forward at 320^2 and 640^2, plus ragged 37x45 and
@@ -677,7 +649,8 @@ def phase_convdp(folded, cfg, bsz=16):
     in bf16, at b1 and at b16: the kernel, its plain version and the
     library pair, with the bound of each unit, summed."""
     import torch
-    from yunet_tpu_torch.ops.convdp import fused_conv_dp, fused_conv_dp_plain
+    from yunet_tpu_torch.tools.verify_device_kernels import (
+        convdp_bf16_call, convdp_f32_call)
     rng = np.random.RandomState(1)
     cases = []
     for hw in (320, 640):
@@ -716,15 +689,9 @@ def phase_convdp(folded, cfg, bsz=16):
     for name, n, h, w, w1, b1, wd, bd, relu in cases:
         x = torch.from_numpy(rng.uniform(0, 3, (n, h, w, w1.shape[0]))
                              .astype(np.float32)).to(DEV)
-        got = fused_conv_dp(x, w1, b1, wd, bd, relu=relu)
-        want = fused_conv_dp_plain(x, w1, b1, wd, bd, relu=relu)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
-            raise AssertionError(f"ConvDP kernel != plain (f32) at {name}: "
-                                 f"max abs err {err} (rtol/atol 1e-5)")
+        err = convdp_f32_call(name, x, w1, b1, wd, bd, relu)
         xb = x.to(torch.bfloat16)
-        excess, over = _check_convdp_bf16(name, xb, w1, b1, wd, bd, relu)
+        excess, over = convdp_bf16_call(name, xb, w1, b1, wd, bd, relu)
         worst["f32"] = max(worst["f32"], err)
         worst["bf16_excess"] = max(worst["bf16_excess"], excess)
         if name.startswith("640:"):
@@ -751,8 +718,8 @@ def phase_convdp(folded, cfg, bsz=16):
         cin, cout = u.w1.shape
         x = (torch.rand((bsz, h, w, cin), generator=gen, device=DEV) * 3).to(
             torch.bfloat16)
-        excess, over = _check_convdp_bf16(f"b{bsz} {name}", x, u.w1, u.b1,
-                                          u.wd, u.bd, u.relu)
+        excess, over = convdp_bf16_call(f"b{bsz} {name}", x, u.w1, u.b1,
+                                        u.wd, u.bd, u.relu)
         worst["bf16_excess"] = max(worst["bf16_excess"], excess)
         t = _convdp_unit_times(x, u.w1, u.b1, u.wd, u.bd, u.relu, warmup=2,
                                iters=5, windows=3)
@@ -2495,6 +2462,158 @@ def distributed_only():
     log(f"[dist] {smi}: " + json.dumps(report))
 
 
+# -- the profiling and check tools ----------------------------------------
+
+TOOLS_DIR = os.path.join(ROOT, "work_dirs", "chip_tools")
+TOOLS_VERIFY = ("nms", "simota", "convdp", "convdp_bwd", "convdp_cm")
+TOOLS_SERVE_KERNELS = ("nms_mask_kernel", "nms_scan_kernel")        # K2
+TOOLS_TRAIN_KERNELS = ("valid_best_kernel", "topk_kernel")          # K1
+TOOLS_SERVE_BATCH, TOOLS_VALIDATE_STEPS = 16, 600
+TOOLS_TEST_IMAGES, TOOLS_MAP_TOL = 16, 1e-4
+
+
+def _profile_table(tot, cnt, steps):
+    """A profile tool's result as {"device_ms", "categories": {category:
+    [ms, launches] a step}, "port_kernels": {...}}."""
+    from yunet_tpu_torch.utils.trace_profile import categories, port_kernels
+    ours = port_kernels([(k, us, cnt[k]) for k, us in tot.items()])
+    return {"device_ms": sum(tot.values()) / steps / 1e3,
+            "categories": {c: [us / steps / 1e3, n / steps] for c, (us, n)
+                           in categories(tot, cnt).items()},
+            "port_kernels": {k: [us / steps / 1e3, n / steps]
+                             for k, (us, n) in ours.items()}}
+
+
+def phase_tools():
+    """The port's profiling and check tools through their main()s, on the
+    card:
+
+      (a) verify_device_kernels.check_all, the body of its main: each of
+          TOOLS_VERIFY passes (main's exit code 0), every bf16 ConvDP
+          call on its tensor-core route;
+      (b) profile_serve (b16, 320^2, 20 calls) and profile_train_step
+          (b16, 640^2, 3 steps): device-lane tables whose port kernels
+          (trace_profile.port_kernels of the returned counters) include
+          K2's mask and scan kernels and K1's two kernels;
+      (c) bench_train_step --simota folded,xla (b16, 5 iterations, 3
+          interleaved windows): the medians;
+      (d) validate_training: TOOLS_VALIDATE_STEPS steps on
+          tests/fixtures/validate_training_160.npz with K1 in every step,
+          recall >= 0.9;
+      (e) tools/test.py in f32 (TF32 off) on the first TOOLS_TEST_IMAGES
+          images of phase_wider's split from the decoded cache, on the card
+          and on this host's CPU: mAPs within TOOLS_MAP_TOL.
+
+    Every kernel, and the tensor-core route of K4, K5 and K6, launched at
+    least once over the phase. Returns ({kernel: launches over the phase},
+    {report})."""
+    import shutil
+    import torch
+    from yunet_tpu_torch.ops.simota import streamed_simota
+    from yunet_tpu_torch.tools import (bench_train_step, profile_serve,
+                                       profile_train_step, test,
+                                       validate_training,
+                                       verify_device_kernels)
+    t_phase = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    rep = {}
+    reset_launch_counts()
+
+    results = verify_device_kernels.check_all(torch.device(DEV))
+    if list(results) != list(TOOLS_VERIFY) or any(results.values()):
+        raise AssertionError(f"verify_device_kernels: {results}")
+    rep["verify"] = {n: "PASS" for n in results}
+
+    for name, tool, argv, steps, want in (
+            ("profile_serve", profile_serve,
+             ["--batch", str(TOOLS_SERVE_BATCH), "--iters", "20"], 20,
+             TOOLS_SERVE_KERNELS),
+            ("profile_train_step", profile_train_step,
+             ["--batch", "16", "--img-size", "640", "--steps", "3"], 3,
+             TOOLS_TRAIN_KERNELS)):
+        got = tool.main(argv + ["--out", os.path.join(TOOLS_DIR, name)],
+                        device=DEV)
+        if got is None:
+            raise AssertionError(f"{name}: the trace holds no device event")
+        rep[name] = _profile_table(*got, steps)
+        absent = [k for k in want if k not in rep[name]["port_kernels"]]
+        if absent:
+            raise AssertionError(f"{name}: the report names no {absent}")
+        if name == "profile_serve":
+            rep[name]["throughput_bound_img_s"] = TOOLS_SERVE_BATCH / (
+                rep[name]["device_ms"] / 1e3)
+
+    rep["bench_train_step"] = bench_train_step.main([
+        "--batch", "16", "--simota", "folded,xla", "--iters", "5",
+        "--windows", "3"], device=DEV)
+
+    before = streamed_simota.launches
+    t0 = time.perf_counter()
+    recall, kp_err = validate_training.run(
+        steps=TOOLS_VALIDATE_STEPS, data=validate_training.load_data(),
+        device=DEV)
+    k1 = streamed_simota.launches - before
+    rep["validate_training"] = {"recall": recall, "kps_err_px": kp_err,
+                                "k1_launches": k1,
+                                "seconds": time.perf_counter() - t0}
+    if recall < 0.9 or k1 != 2 * TOOLS_VALIDATE_STEPS:
+        raise AssertionError(f"validate_training: recall {recall} (gate 0.9),"
+                             f" {k1} K1 launches for {TOOLS_VALIDATE_STEPS} "
+                             "steps")
+
+    ann, cache, _ = fit_val_split()
+    argv = ["yunet_n", FIXTURE, "--ann", ann, "--cache-dir", cache,
+            "--limit", str(TOOLS_TEST_IMAGES)]
+    restore = _patched(test, "Detector", lambda cls: (
+        lambda *a, **kw: cls(*a, dtype=torch.float32, **kw)))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        maps = {d: test.main(argv, device=d) for d in (DEV, "cpu")}
+    finally:
+        restore()
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    rep["test_map"] = maps
+    if not abs(maps[DEV] - maps["cpu"]) <= TOOLS_MAP_TOL:
+        raise AssertionError(f"tools/test.py mAP on the card {maps[DEV]} vs "
+                             f"the CPU {maps['cpu']} (tolerance "
+                             f"{TOOLS_MAP_TOL})")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    launches = launch_counts()
+    idle = [k for k, v in launches.items() if not v]
+    if idle:
+        raise AssertionError(f"tools: no launch of {idle} ({launches})")
+    log(f"[tools] verify PASS {list(TOOLS_VERIFY)}; serve device "
+        f"{rep['profile_serve']['device_ms']:.4f} ms a call, train step "
+        f"{rep['profile_train_step']['device_ms']:.4f} ms; bench medians "
+        + json.dumps({k: v["imgs_per_s_median"]
+                      for k, v in rep["bench_train_step"].items()})
+        + f"; validate recall {recall:.3f}, kps error {kp_err:.2f} px; "
+        f"mAP card {maps[DEV]:.6f} / CPU {maps['cpu']:.6f}; launches "
+        f"{launches}; phase {rep['phase_s']:.1f} s")
+    return launches, rep
+
+
+def tools_only():
+    """phase_tools alone, for quick work on the tools: python3 -c "import
+    chip_smoke as s; s.tools_only()" from the repository root. Builds
+    every kernel (the verify tool checks them all) and draws phase_wider's
+    split if it is not there."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    watchdog(WATCHDOG_S)
+    smi = nvidia_smi_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} | {smi}")
+    phase_build()
+    load_model()                                   # TF32 off
+    launches, report = phase_tools()
+    log(f"[tools] {smi}: " + json.dumps(report))
+
+
 # -- export and import -----------------------------------------------------
 
 EXPORT_DIR = os.path.join(ROOT, "work_dirs", "chip_export")
@@ -2551,9 +2670,10 @@ def phase_export(sd):
          to Detector(fused=True)'s from the model; K4 and K2/K3 counted
          over these calls (29 and 2 a detect, the bf16 ones all on K4's
          tensor-core route); K4 held to its plain version on this
-         Detector's own unit inputs (bf16: _check_convdp_bf16; f32:
-         fused_forward with the kernel against without it, and the
-         detections); K2/K3's keep sets equal to the host NMS's;
+         Detector's own unit inputs (bf16: verify_device_kernels'
+         convdp_bf16_call; f32: fused_forward with the kernel against
+         without it, and the detections); K2/K3's keep sets equal to the
+         host NMS's;
       5. the CLIs through their main() on the card: detect_image on an .npy
          face image with --fused --device-nms (its box count equal to
          the API's), yunet2onnx --verify;
@@ -2580,6 +2700,7 @@ def phase_export(sd):
     from yunet_tpu_torch.ops.convdp import fused_conv_dp_plain
     from yunet_tpu_torch.ops.nms import device_nms
     from yunet_tpu_torch.tools import detect_image, yunet2onnx
+    from yunet_tpu_torch.tools.verify_device_kernels import convdp_bf16_call
     from yunet_tpu_torch.tools.yunet2onnx import flat_outputs
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2706,8 +2827,7 @@ def phase_export(sd):
         fused_mod.fused_conv_dp = kernel
     worst = 0.0
     for i, (args, kwargs) in enumerate(calls):
-        excess, _ = _check_convdp_bf16(f"imported unit {i}", *args,
-                                       **kwargs)
+        excess, _ = convdp_bf16_call(f"imported unit {i}", *args, **kwargs)
         worst = max(worst, excess)
     if len(calls) != 29:
         raise AssertionError(f"{len(calls)} ConvDP calls in a detect")
@@ -3178,16 +3298,6 @@ def phase_train_times(sd, batch):
     return out
 
 
-GRADS = ("dx", "dw1", "db1", "dwd", "dbd")
-# fused ConvDP backward, kernel against its plain version, as shares of
-# each gradient's largest magnitude: f32 sums over up to 409,600
-# positions in another order (the kernel's per-block sums and fixed-order
-# reduction against torch's reductions and f32 matmuls; in bf16 the
-# recomputed y1, rounded to bf16 after sums in another order, may round
-# the other way). Measured on an H100 at most 4.4e-6. dx in bf16, rounded
-# once by both, may differ by one bf16 ulp more: where its sum cancels,
-# the f32 noise of the sum order is many ulps of the small result
-BWD_TOL = 1e-4
 
 
 # the five heaviest units of a 640^2 b16 step; shapes that are not whole
@@ -3199,48 +3309,14 @@ RAGGED_BWD = ((2, 21, 19, 16, 64), (2, 21, 19, 64, 10), (1, 17, 33, 32, 32),
 
 
 def _check_convdp_bwd(label, x, w1, b1, wd, dz, worst):
-    """One backward kernel call against its plain version, within BWD_TOL.
-    In bf16 also: the call took the tensor-core route (its counter), and a
-    second call gives the same gradients bit for bit. Returns the shares."""
+    """verify_device_kernels.convdp_bwd_call, its shares and f32 abs error
+    folded into ``worst``. Returns the shares."""
     import torch
-    from yunet_tpu_torch.ops.convdp import ulp_bf16
-    from yunet_tpu_torch.ops.convdp_train import (fused_pw_dw_bwd,
-                                                  fused_pw_dw_bwd_plain)
-    bf16 = x.dtype == torch.bfloat16
-    before = fused_pw_dw_bwd.launches_mma
-    got = fused_pw_dw_bwd(x, w1, b1, wd, dz)
-    if fused_pw_dw_bwd.launches_mma != before + int(bf16):
-        raise AssertionError(f"convdp_bwd {label} {x.dtype}: not on the "
-                             f"{'tensor-core' if bf16 else 'f32'} route")
-    want = fused_pw_dw_bwd_plain(x, w1, b1, wd, dz)
-    torch.cuda.synchronize()
-    shares = {}
-    for g_name, g, wt in zip(GRADS, got, want):
-        if g.shape != wt.shape or g.dtype != wt.dtype:
-            raise AssertionError(f"convdp_bwd {label}: {g_name} "
-                                 f"{g.shape}/{g.dtype} vs plain "
-                                 f"{wt.shape}/{wt.dtype}")
-        d = (g.float() - wt.float()).abs()
-        shares[g_name] = float(d.max() / wt.float().abs().max()
-                               .clamp_min(1e-30))
-        if not bf16:
-            worst["f32_abs"] = max(worst["f32_abs"], float(d.max()))
-    if bf16:
-        # dx: what is left over one bf16 ulp, as a share
-        a, b = got[0].float(), want[0].float()
-        shares["dx"] = float(((a - b).abs() - ulp_bf16(
-            torch.maximum(a.abs(), b.abs()))).clamp_min(0).max()
-            / b.abs().max().clamp_min(1e-30))
-        again = fused_pw_dw_bwd(x, w1, b1, wd, dz)
-        if not all(torch.equal(u, v) for u, v in zip(got, again)):
-            raise AssertionError(f"convdp_bwd {label}: two bf16 calls gave "
-                                 "different gradients")
-    key = "bf16" if bf16 else "f32"
+    from yunet_tpu_torch.tools.verify_device_kernels import convdp_bwd_call
+    shares, abs_err = convdp_bwd_call(label, x, w1, b1, wd, dz)
+    key = "bf16" if x.dtype == torch.bfloat16 else "f32"
     worst[key] = max(worst[key], *shares.values())
-    bad = {k: v for k, v in shares.items() if v > BWD_TOL}
-    if bad:
-        raise AssertionError(f"convdp_bwd kernel != plain at {label} {x.dtype}:"
-                             f" {bad} (tolerances {BWD_TOL})")
+    worst["f32_abs"] = max(worst["f32_abs"], abs_err)
     return shares
 
 
@@ -3258,6 +3334,7 @@ def phase_convdp_bwd(folded, cfg, bsz=16, hw=640):
     from yunet_tpu_torch.models.layers import library_conv2d
     from yunet_tpu_torch.ops.convdp_train import (fused_pw_dw_bwd,
                                                   fused_pw_dw_bwd_plain)
+    from yunet_tpu_torch.tools.verify_device_kernels import BWD_TOL
     gen = torch.Generator(device=DEV).manual_seed(6)
     units = convdp_unit_shapes(folded, cfg, hw, hw)
     if len(units) != 29:
@@ -3464,84 +3541,19 @@ CM_RAGGED = ((10, 6, 8, 16, 128), (9, 5, 3, 8, 128), (11, 7, 16, 24, 37),
              (13, 21, 64, 64, 45))
 
 
-def _check_convdp_cm(label, x32, w1, b1, wd, bd):
-    """The channels-major kernel on x32 (N, H, W, Cin; f32 on the card)
-    laid out as (H, Cin, W*N), in f32 and bf16, with and without ReLU,
-    against its plain version and against the NHWC kernel on the same
-    data. f32 (the scalar route) within rtol/atol 1e-5: sums in another
-    order. bf16: y1 is rounded to bf16 (the plain version too, after
-    another sum order, so it may round the other way; the NHWC kernel
-    keeps it f32), which moves an output by at most one bf16 ulp of its
-    channel's largest |y1| through the nine taps, plus one ulp of the
-    output. Every bf16 call at 64 channels or fewer on the tensor-core
-    route, and a second call bit-equal. Returns (f32 max abs err against
-    the plain version, worst bf16 diff over its tolerance)."""
-    import torch
-    from yunet_tpu_torch.ops.convdp import fused_conv_dp, ulp_bf16
-    from yunet_tpu_torch.ops.convdp_cm import (fused_conv_dp_cm,
-                                               fused_conv_dp_cm_plain)
-    n, h, w, cin = x32.shape
-    cout = w1.shape[1]
-    f32_err, share = 0.0, 0.0
-    for dt in (torch.float32, torch.bfloat16):
-        bf16 = dt == torch.bfloat16
-        xn = x32.to(dt)
-        xc = xn.permute(1, 3, 2, 0).reshape(h, cin, w * n).contiguous()
-        if bf16:
-            y1 = (xn.float().reshape(-1, cin) @ w1.to(dt).float()
-                  + b1).abs().amax(0)
-            y1_tol = (ulp_bf16(y1) * wd.abs().sum(0))[None, :, None]
-        for relu in (False, True):
-            before = fused_conv_dp_cm.launches_mma
-            got = fused_conv_dp_cm(xc, w1, b1, wd, bd, w=w, n=n, relu=relu)
-            mma = fused_conv_dp_cm.launches_mma - before
-            if mma != int(bf16 and max(cin, cout) <= 64):
-                raise AssertionError(f"convdp_cm {label} {dt}: {mma} "
-                                     "tensor-core route launches")
-            if bf16:
-                again = fused_conv_dp_cm(xc, w1, b1, wd, bd, w=w, n=n,
-                                         relu=relu)
-            plain = fused_conv_dp_cm_plain(xc, w1, b1, wd, bd, w=w, n=n,
-                                           relu=relu)
-            k4 = fused_conv_dp(xn, w1, b1, wd, bd, relu=relu).permute(
-                1, 3, 2, 0).reshape(h, cout, w * n)
-            torch.cuda.synchronize()
-            if bf16 and not torch.equal(got, again):
-                raise AssertionError(f"convdp_cm {label} bf16: two calls "
-                                     "differ")
-            g = got.float()
-            for what, ref in (("plain", plain.float()), ("nhwc", k4.float())):
-                d = (g - ref).abs()
-                if not bf16:
-                    if what == "plain":
-                        f32_err = max(f32_err, float(d.max()))
-                    ok = bool((d <= 1e-5 + 1e-5 * ref.abs()).all())
-                else:
-                    tol = y1_tol + ulp_bf16(torch.maximum(g.abs(),
-                                                          ref.abs()))
-                    share = max(share, float((d / tol).max()))
-                    ok = bool((d <= tol).all())
-                log(f"[convdp_cm] {label} {str(dt)[6:]} relu={relu} kernel "
-                    f"vs {what}: max abs diff {float(d.max()):.3e}")
-                if not ok:
-                    raise AssertionError(f"convdp_cm kernel != {what} at "
-                                         f"{label} ({dt}, relu={relu})")
-            del got, plain, k4, g
-    return f32_err, share
-
-
 def phase_convdp_cm():
-    """The channels-major ConvDP kernel (_check_convdp_cm) at the bench
-    shape (64 -> 64, 160^2, N = 128; seeded on the card) and at the
-    ragged shapes of CM_RAGGED. Times the bf16 kernel, its plain version
-    and the library pair at the bench shape, then runs the bench twin with
-    the launch counters from zero: all 120 launches on the tensor-core
-    route."""
+    """The channels-major ConvDP kernel (verify_device_kernels'
+    convdp_cm_call) at the bench shape (64 -> 64, 160^2, N = 128; seeded
+    on the card) and at the ragged shapes of CM_RAGGED. Times the bf16
+    kernel, its plain version and the library pair at the bench shape, then
+    runs the bench twin with the launch counters from zero: all 120
+    launches on the tensor-core route."""
     import torch
     import torch.nn.functional as F
     from yunet_tpu_torch.ops.convdp_cm import (fused_conv_dp_cm,
                                                fused_conv_dp_cm_plain)
     from yunet_tpu_torch.tools import bench_convdp_cm as bench
+    from yunet_tpu_torch.tools.verify_device_kernels import convdp_cm_call
     n, h, w, cin, cout = bench.N, bench.H, bench.W, bench.CIN, bench.COUT
     gen = torch.Generator(device=DEV).manual_seed(7)
 
@@ -3551,11 +3563,14 @@ def phase_convdp_cm():
                   for s in ((cin, cout), (cout,), (9, cout), (cout,))))
 
     x32, w1, b1, wd, bd = draw(n, h, w, cin, cout)
-    max_err, share = _check_convdp_cm(f"{h}x{w} {cin}->{cout} N={n}", x32,
-                                      w1, b1, wd, bd)
+    def cm_log(line):
+        log(f"[convdp_cm] {line}")
+
+    max_err, share = convdp_cm_call(f"{h}x{w} {cin}->{cout} N={n}", x32,
+                                    w1, b1, wd, bd, log=cm_log)
     for rh, rw, rci, rco, rn in CM_RAGGED:
-        e, s = _check_convdp_cm(f"{rh}x{rw} {rci}->{rco} N={rn}",
-                                *draw(rn, rh, rw, rci, rco))
+        e, s = convdp_cm_call(f"{rh}x{rw} {rci}->{rco} N={rn}",
+                              *draw(rn, rh, rw, rci, rco), log=cm_log)
         max_err, share = max(max_err, e), max(share, s)
     log(f"[convdp_cm] worst: f32 abs err {max_err:.3e} (rtol/atol 1e-5); "
         f"bf16 diff at most {share:.3f} of its tolerance; every bf16 call "
@@ -3771,6 +3786,8 @@ def main() -> int:
     log(f"[export] {smi}: " + json.dumps(export_report))
     dist_launches, dist_report = phase(phase_distributed, sd)
     log(f"[dist] {smi}: " + json.dumps(dist_report))
+    tools_launches, tools_report = phase(phase_tools)
+    log(f"[tools] {smi}: " + json.dumps(tools_report))
     log(f"[phase] seconds {json.dumps(secs)}")
 
     kernels = [
@@ -3779,6 +3796,9 @@ def main() -> int:
          "replaces": "yunet_tpu/ops/nms_pallas.py:78",
          "also_replaces": "yunet_tpu/ops/nms_pallas.py:40",
          "launches": serve_launches["greedy_nms"],
+         # the tools path (phase_tools): verify_device_kernels, the
+         # profiles, bench_train_step, validate_training, tools/test.py
+         "launches_tools": tools_launches["greedy_nms"],
          # the WIDER sweeps with --device-nms, mode 0 and mode 2
          "launches_wider": wider_launches["greedy_nms"],
          # the eval hook of the training CLI (phase_fit)
@@ -3798,6 +3818,9 @@ def main() -> int:
          "source": "yunet_tpu_torch/csrc/convdp.cu",
          "replaces": "yunet_tpu/ops/convdp_pallas.py:29",
          "launches": serve_launches["fused_conv_dp"],
+         # the tools path (phase_tools): verify_device_kernels, the
+         # profiles, bench_train_step, validate_training, tools/test.py
+         "launches_tools": tools_launches["fused_conv_dp"],
          # of those, the launches of the bf16 (tensor-core) route
          "launches_mma": serve_launches["fused_conv_dp_mma"],
          # a fused Detector's solo detects on the WIDER path: the sweep's
@@ -3822,6 +3845,9 @@ def main() -> int:
          "replaces": "yunet_tpu/ops/simota_pallas.py:233",
          "also_replaces": "yunet_tpu/ops/simota_pallas.py:118",
          "launches": train_launches["simota_streamed"],
+         # the tools path (phase_tools): verify_device_kernels, the
+         # profiles, bench_train_step, validate_training, tools/test.py
+         "launches_tools": tools_launches["simota_streamed"],
          # the training CLI: shipped, resumed and fused runs (phase_fit)
          "launches_training_cli": fit_launches["simota_streamed"],
          # the training CLI with data.device_aug=true: 12 steps, the
@@ -3838,6 +3864,9 @@ def main() -> int:
          "source": "yunet_tpu_torch/csrc/convdp_bwd.cu",
          "replaces": "yunet_tpu/ops/convdp_pallas_impl.py:61",
          "launches": fused_launches["convdp_bwd"],
+         # the tools path (phase_tools): verify_device_kernels, the
+         # profiles, bench_train_step, validate_training, tools/test.py
+         "launches_tools": tools_launches["convdp_bwd"],
          # of those, the launches of the bf16 (tensor-core) route
          "launches_mma": fused_launches["convdp_bwd_mma"],
          # the training CLI's fused run (phase_fit)
@@ -3848,6 +3877,9 @@ def main() -> int:
          "source": "yunet_tpu_torch/csrc/convdp_cm.cu",
          "replaces": "yunet_tpu/ops/convdp_cm_pallas.py:57",
          "launches": cm_launches,
+         # the tools path (phase_tools): verify_device_kernels, the
+         # profiles, bench_train_step, validate_training, tools/test.py
+         "launches_tools": tools_launches["convdp_cm"],
          # of those, the launches of the bf16 (tensor-core) route
          "launches_mma": cm_mma, "max_abs_err": cm_err, **cm_t},
     ]
