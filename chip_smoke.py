@@ -35,8 +35,13 @@ with a sharded bank and the gathered eval hook, NCCL at world size 1 and,
 with two cards, two NCCL ranks) and the profiling and check tools
 (verify_device_kernels on every kernel, profile_serve and
 profile_train_step, bench_train_step, validate_training on its fixture,
-tools/test.py on the card against the CPU), shows through the launch
-counters that each path ran its kernels, and
+tools/test.py on the card against the CPU) and the modules ported last
+(compare_inference --eval and FPS with the torch and ONNX engines, the
+ONNX engine's APs against the CPU's; run_rehearsal's SIGKILL and
+bit-exact auto-resume of the training CLI; ema_ab_table; the band
+fixture read back and its APs against test_widerface's; Detector.mesh
+over two shards; the augmentation library without OpenCV), shows
+through the launch counters that each path ran its kernels, and
 times kernels, their plain versions, library yardsticks and the paths
 with CUDA events. Any failed check raises, and the script exits
 non-zero. There is no CPU path: without a CUDA device it exits non-zero
@@ -49,12 +54,14 @@ them, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -2614,6 +2621,358 @@ def tools_only():
     log(f"[tools] {smi}: " + json.dumps(report))
 
 
+# -- the last modules: harness, rehearsal, study tools, mesh, augmentation --
+
+STUDY_DIR = os.path.join(ROOT, "work_dirs", "chip_study")
+STUDY_ONNX_AP_TOL = 1e-4       # the ONNX engine, card against CPU
+STUDY_BF16_AP_TOL = 0.02       # bf16 torch engine against the f32 ONNX
+STUDY_FPS_ITERS = 20
+# the rehearsal: 64 images at b16 = 4 steps an epoch, a checkpoint each
+REH_EPOCHS, REH_KILL_AT = 3, 5
+REH_TIMEOUT_S = 240
+
+
+def counted_train(count_path, argv):
+    """python -m yunet_tpu_torch.tools.train's main(argv) in a rehearsal
+    leg, appending after each step a line "steps K1 K2" (this process's
+    launch counters) to count_path, and "end K1 K2" when main returns, so
+    a SIGKILLed leg leaves its counts too."""
+    from yunet_tpu_torch.ops.nms import greedy_nms_keep
+    from yunet_tpu_torch.ops.simota import streamed_simota
+    from yunet_tpu_torch.tools import train as cli
+    from yunet_tpu_torch.train import loop
+
+    def counts():
+        return f"{streamed_simota.launches} {greedy_nms_keep.launches}"
+
+    def wrap(make):
+        def made(*a, **kw):
+            step = make(*a, **kw)
+            done = [0]
+
+            def counted(*sa, **skw):
+                out = step(*sa, **skw)
+                done[0] += 1
+                with open(count_path, "a") as f:
+                    f.write(f"{done[0]} {counts()}\n")
+                return out
+            return counted
+        return made
+
+    loop.make_train_step = wrap(loop.make_train_step)
+    cli.main(argv)
+    with open(count_path, "a") as f:
+        f.write(f"end {counts()}\n")
+
+
+def _leg_counts(path):
+    """counted_train's lines -> [[(steps, K1, K2), ..., ("end", K1, K2)?]
+    a leg]: a leg starts where the step count restarts at 1."""
+    legs = []
+    with open(path) as f:
+        for line in f:
+            a, k1, k2 = line.split()
+            if a == "1":
+                legs.append([])
+            legs[-1].append((a, int(k1), int(k2)))
+    return legs
+
+
+def phase_study():
+    """The modules ported last, through their entry points, on the card:
+
+      (a) compare_inference --eval over phase_fit's val split (wider_split,
+          64 images from the decoded cache, "640,640") with
+          torch:yunet_n:<r04> (bf16, device NMS: K3 on every detect) and
+          onnx:<the port's export at 640^2> (the torch ONNX executor); the
+          same ONNX engine on this host's CPU: APs within
+          STUDY_ONNX_AP_TOL; the torch engine's within STUDY_BF16_AP_TOL of
+          the ONNX engine's; then the FPS mode (run_bench) of both on one
+          image, with the per-stage times.
+      (b) run_rehearsal on phase_fit's 64-image train split with the
+          device-aug bank, b16 at 640^2, a checkpoint every epoch, EMA,
+          --eval-both-params with --eval-device-nms at the end, from the
+          r04 weights (a step-0 checkpoint in the work dir, which the
+          first leg auto-resumes), SIGKILLed at step REH_KILL_AT and
+          auto-resumed: the tool's bit-exact gate on every duplicated
+          step, 2 K1 launches a step in each leg (its trainer runs as
+          counted_train).
+      (c) ema_ab_table over (b)'s metrics.jsonl.
+      (d) export_band_fixture on (b)'s last checkpoint over the val split
+          with device NMS: the file read back through load_flat_npz equal
+          to the checkpoint's EMA shadow, its mode-0 and mode-2 APs equal
+          to test_widerface's on the same weights and split.
+      (e) Detector.mesh = [cuda:0, cuda:0] at serve b16 320^2 with device
+          NMS against the unsharded call: JAX's sharded tolerances
+          (tests/test_detect.py: rtol 1e-5, atol 1e-4 boxes, 1e-3 kps),
+          equal counts, one K2 call (two launches) a shard.
+      (f) data/aug_extra.py and data/auto_augment.py, every transform once
+          on this host, which has no OpenCV.
+
+    Returns ({kernel: launches over the phase, the rehearsal's trainers
+    included}, {report})."""
+    import shutil
+    import torch
+    from yunet_tpu_torch.config import yunet_n
+    from yunet_tpu_torch.eval.detect import Detector
+    from yunet_tpu_torch.export.onnx_export import export_onnx
+    from yunet_tpu_torch.ops.nms import greedy_nms_keep
+    from yunet_tpu_torch.tools import (compare_inference, ema_ab_table,
+                                       export_band_fixture, run_rehearsal,
+                                       test_widerface)
+    from yunet_tpu_torch.train.checkpoint import read_state, save_checkpoint
+    from yunet_tpu_torch.train.step import init_train_state
+    from yunet_tpu_torch.utils.jax_params import (_leaves, jax_from_state_dict,
+                                                  load_flat_npz,
+                                                  state_dict_from_jax)
+    t_phase = time.perf_counter()
+    shutil.rmtree(STUDY_DIR, ignore_errors=True)
+    os.makedirs(STUDY_DIR)
+    rep = {}
+    cfg = yunet_n()
+    train_ann, train_cache = fit_train_split()
+    val_ann, val_cache, val_gt = fit_val_split()
+    reset_launch_counts()
+
+    # (a) the cross-engine harness (load_model also turns TF32 off, which
+    # the f32 ONNX engine's card-against-CPU check needs)
+    model = load_model()[2]
+    onnx = os.path.join(STUDY_DIR, "yunet_n_640.onnx")
+    with open(onnx, "wb") as f:
+        f.write(export_onnx(model, cfg.model, input_shape=(640, 640)))
+    specs = {"torch": f"torch:yunet_n:{FIXTURE}", "onnx": f"onnx:{onnx}"}
+    argv = ["--eval", "--ann", val_ann, "--gt-dir", val_gt, "--cache-dir",
+            val_cache, "--mode", "640,640"]
+    t0 = time.perf_counter()
+    k3 = greedy_nms_keep.launches
+    aps = {"torch": compare_inference.main(
+        ["--models", specs["torch"]] + argv, device=DEV)[specs["torch"]]}
+    k3 = greedy_nms_keep.launches - k3
+    aps["onnx"] = compare_inference.main(
+        ["--models", specs["onnx"]] + argv, device=DEV)[specs["onnx"]]
+    rep["eval_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aps["onnx_cpu"] = compare_inference.main(
+        ["--models", specs["onnx"]] + argv, device="cpu")[specs["onnx"]]
+    rep["eval_onnx_cpu_s"] = time.perf_counter() - t0
+    rep["eval_aps"] = {k: [float(a) for a in v] for k, v in aps.items()}
+    rep["eval_k3_launches"] = k3
+    gap_cpu = max(abs(a - b) for a, b in zip(aps["onnx"], aps["onnx_cpu"]))
+    gap_bf16 = max(abs(a - b) for a, b in zip(aps["torch"], aps["onnx"]))
+    if gap_cpu > STUDY_ONNX_AP_TOL or gap_bf16 > STUDY_BF16_AP_TOL:
+        raise AssertionError(f"compare_inference APs {rep['eval_aps']}: "
+                             f"ONNX card-CPU gap {gap_cpu}, bf16 torch-ONNX "
+                             f"gap {gap_bf16}")
+    if k3 != 2 * WIDER_IMAGES:
+        raise AssertionError(f"torch engine: {k3} NMS launches for "
+                             f"{WIDER_IMAGES} detects, want 2 each")
+    from yunet_tpu_torch.data.cache import load_cached
+    from yunet_tpu_torch.data.labelv2 import parse_labelv2
+    img = load_cached(val_cache, parse_labelv2(val_ann, test_mode=True)[0]
+                      .filename)
+    bench = types.SimpleNamespace(mode="640,640", iters=STUDY_FPS_ITERS)
+    rep["fps"] = {}
+    for name, spec in specs.items():
+        eng = compare_inference.build_engine(spec, device=DEV)
+        fps = compare_inference.run_bench(eng, spec, bench, img)
+        rep["fps"][name] = {"fps": fps, "stage_ms": {
+            k: t.total / STUDY_FPS_ITERS * 1e3
+            for k, t in eng.times.timers.items()}}
+    log(f"[study] compare_inference: APs {rep['eval_aps']} (ONNX card-CPU "
+        f"gap {gap_cpu:.2e}, bf16-ONNX gap {gap_bf16:.4f}), K3 {k3}; FPS "
+        + json.dumps(rep["fps"]))
+
+    # (b) the rehearsal, from the r04 weights through a step-0 checkpoint
+    work = os.path.join(STUDY_DIR, "rehearsal")
+    cfg_ema = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, ema_momentum=0.0002))
+    sd = state_dict_from_jax(*load_flat_npz(FIXTURE, cfg.model))
+    ts0, opt0 = init_train_state(cfg_ema, steps_per_epoch=1, total_batch=16,
+                                 device="cpu", state_dict=sd)
+    save_checkpoint(work, ts0, opt0, epoch=0, meta={"config": "yunet_n"})
+    data = FIT_DIR
+    count_path = os.path.join(STUDY_DIR, "launches.txt")
+    cmd_of = run_rehearsal.train_cmd
+
+    def counted_cmd(args, device):
+        cmd = cmd_of(args, device)
+        i = cmd.index("-m")
+        return [cmd[0], "-c", "import sys; sys.path.insert(0, "
+                f"{ROOT!r}); import chip_smoke; chip_smoke.counted_train("
+                f"{count_path!r}, sys.argv[1:])"] + cmd[i + 2:]
+
+    legs = []
+    run_leg = run_rehearsal.run_leg
+
+    def timed_leg(*a, **kw):
+        t = time.perf_counter()
+        out = run_leg(*a, **kw)
+        legs.append(time.perf_counter() - t)
+        return out
+
+    restore = [_patched(run_rehearsal, "train_cmd", lambda _: counted_cmd),
+               _patched(run_rehearsal, "run_leg", lambda _: timed_leg)]
+    try:
+        rc = run_rehearsal.main([
+            "--data", data, "--work-dir", work, "--batch", "16",
+            "--epochs", str(REH_EPOCHS), "--eval-interval", str(REH_EPOCHS),
+            "--kill-at", str(REH_KILL_AT),
+            "--leg-timeout", str(REH_TIMEOUT_S),
+            "--decoded-cache", train_cache, "--eval-cache-dir", val_cache,
+            "--eval-both-params", "--eval-device-nms", "--cfg-options",
+            "train.checkpoint_interval=1", "train.log_interval=1"],
+            device=DEV)
+    finally:
+        for r in restore:
+            r()
+    metrics = os.path.join(work, "metrics.jsonl")
+    dup, exact = run_rehearsal.check_resume_bitexact(metrics)
+    counted = _leg_counts(count_path)
+    rep["rehearsal"] = {"rc": rc, "duplicated": dup, "bit_exact": exact,
+                        "legs_s": legs, "leg_steps": [
+                            [int(r[0]) for r in leg if r[0] != "end"][-1]
+                            for leg in counted]}
+    if rc != 0 or dup == 0 or exact != dup or len(counted) != 2:
+        raise AssertionError(f"rehearsal: {rep['rehearsal']}")
+    k1_total = k2_total = 0
+    for leg in counted:
+        for a, k1, _ in leg:
+            if a != "end" and k1 != 2 * int(a):
+                raise AssertionError(f"rehearsal leg: {k1} K1 launches after "
+                                     f"{a} steps, want 2 a step")
+        k1_total += leg[-1][1]
+        k2_total += leg[-1][2]
+    if counted[1][-1][0] != "end" or counted[1][-1][2] <= 0:
+        raise AssertionError(f"the resumed leg ran no eval NMS: {counted[1]}")
+    rep["rehearsal"].update(k1_launches=k1_total, k2_launches=k2_total)
+    log(f"[study] rehearsal: {rep['rehearsal']}")
+
+    # (c) the EMA / raw table
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        table_rc = ema_ab_table.main([metrics, "--markdown"])
+    log(buf.getvalue().rstrip())
+    if table_rc != 0 or "endpoint (step 12)" not in buf.getvalue():
+        raise AssertionError(f"ema_ab_table: rc {table_rc}")
+    rep["ema_table"] = buf.getvalue()
+
+    # (d) the band fixture on the last checkpoint
+    ckpt = open(os.path.join(work, "latest")).read().strip()
+    band = os.path.join(STUDY_DIR, "band.npz")
+    t0 = time.perf_counter()
+    meta = export_band_fixture.main([
+        "--ckpt", ckpt, "--data", data, "--out", band, "--cache-dir",
+        val_cache, "--device-nms"], device=DEV)
+    rep["band_fixture_s"] = time.perf_counter() - t0
+    state = read_state(ckpt)
+    names = [n for n, _ in model.named_parameters()]
+    want_sd = dict(state["model"])
+    want_sd.update(zip(names, state["ema"]))
+    want = jax_from_state_dict(want_sd, cfg.model)
+    got = load_flat_npz(band, cfg.model)
+    for wt, gt in zip(want, got):
+        for (path, w), (_, g) in zip(_leaves(wt), _leaves(gt)):
+            if not np.array_equal(w, g):
+                raise AssertionError(f"band fixture leaf {path} differs")
+    band_aps = {}
+    for key, mode in (("mode0_aps", 0), ("mode2_aps", 2)):
+        aps_cli = test_widerface.main([
+            "yunet_n", band, "--mode", str(mode), "--device-nms", "--ann",
+            val_ann, "--gt-dir", val_gt, "--cache-dir", val_cache,
+            "--eval-log", os.path.join(STUDY_DIR, "eval.log")], device=DEV)
+        rec = [meta[key][k] for k in ("easy", "medium", "hard")]
+        band_aps[key] = rec
+        if rec != [float(a) for a in aps_cli]:
+            raise AssertionError(f"band fixture {key} {rec} != "
+                                 f"test_widerface's {list(aps_cli)}")
+    rep["band_aps"] = band_aps
+    log(f"[study] band fixture {meta['n_params']} + {meta['n_state']} "
+        f"leaves equal to the EMA shadow; APs {band_aps} equal to "
+        "test_widerface's")
+
+    # (e) Detector.mesh: two shards on the one card
+    rng = np.random.RandomState(2)
+    imgs = [face_image(rng, 320, 320, rng.randint(2, 7)) for _ in range(16)]
+    # f32 (TF32 off): cuDNN may pick other bf16 algorithms at b8 than at
+    # b16, and a bf16 rounding flip moves a box by more than the tolerance
+    det = Detector(cfg, sd, device=DEV, dtype=torch.float32)
+    ref = det.detect_batch(imgs, "AUTO", use_device_nms=True)
+    det.mesh = [DEV, DEV]
+    before = greedy_nms_keep.launches
+    shard = det.detect_batch(imgs, "AUTO", use_device_nms=True)
+    torch.cuda.synchronize()
+    mesh_launches = greedy_nms_keep.launches - before
+    worst = [0.0, 0.0]
+    for r, s in zip(ref, shard):
+        if r["bboxes"].shape != s["bboxes"].shape:
+            raise AssertionError("Detector.mesh: detection counts differ")
+        for i, (key, atol) in enumerate((("bboxes", 1e-4), ("kps", 1e-3))):
+            np.testing.assert_allclose(s[key], r[key], rtol=1e-5, atol=atol)
+            if len(r[key]):
+                worst[i] = max(worst[i], float(np.abs(s[key] - r[key]).max()))
+    if mesh_launches != 2 * 2:
+        raise AssertionError(f"Detector.mesh: {mesh_launches} NMS launches "
+                             "for 2 shards, want one call (2) a shard")
+    rep["mesh"] = {"detections": sum(len(r["bboxes"]) for r in shard),
+                   "max_abs_diff_boxes": worst[0], "max_abs_diff_kps":
+                   worst[1], "nms_launches": mesh_launches}
+    log(f"[study] Detector.mesh [{DEV}, {DEV}]: {rep['mesh']}")
+
+    # (f) the augmentation library without OpenCV
+    from yunet_tpu_torch.data import aug_extra, auto_augment
+    arng = np.random.RandomState(0)
+    aimg, boxes, kps = face_sample(arng, 320, 320, 4)
+    aimg = aimg.astype(np.float32)
+    outs = [aug_extra.photometric_distortion(aimg, arng),
+            aug_extra.random_affine(aimg, boxes, kps, arng)[0],
+            aug_extra.mosaic4([(aimg, boxes, kps)] * 4, arng,
+                              out_size=640)[0],
+            aug_extra.mixup(aimg, boxes, kps, aimg, boxes, kps, arng,
+                            img_scale=(320, 320))[0],
+            aug_extra.expand(aimg, boxes, kps, arng)[0],
+            aug_extra.cutout(aimg, arng)]
+    for policy in auto_augment.default_policies():
+        outs.append(auto_augment.apply_policy(
+            aimg, boxes, kps, arng, [dict(p, prob=1.0) for p in policy])[0])
+    if not all(np.isfinite(o).all() and o.ndim == 3 for o in outs):
+        raise AssertionError("augmentation output not finite")
+    rep["augment"] = {"calls": len(outs), "cv2_loaded": "cv2" in sys.modules}
+    log(f"[study] aug_extra and auto_augment: {len(outs)} calls, cv2 "
+        f"loaded: {'cv2' in sys.modules}")
+
+    rep["phase_s"] = time.perf_counter() - t_phase
+    launches = launch_counts()
+    launches["simota_streamed"] += k1_total
+    launches["greedy_nms"] += k2_total
+    rep["launches"] = launches
+    for name in ("simota_streamed", "greedy_nms"):
+        if not launches[name]:
+            raise AssertionError(f"study: no launch of {name} ({launches})")
+    log(f"[study] launches {launches}; phase {rep['phase_s']:.1f} s")
+    return launches, rep
+
+
+def study_only():
+    """phase_study alone, for quick work on the last modules: python3 -c
+    "import chip_smoke as s; s.study_only()" from the repository root.
+    Builds nms.cu, simota.cu and host_nms.cpp and draws phase_fit's splits
+    if they are not there."""
+    import torch
+    from yunet_tpu_torch import native
+    from yunet_tpu_torch.ops import nms, simota
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    watchdog(WATCHDOG_S)
+    smi = nvidia_smi_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} | {smi}")
+    phase_build({"nms.cu": nms.LIB, "simota.cu": simota.LIB,
+                 "host_nms.cpp": native.LIB})
+    launches, report = phase_study()
+    log(f"[study] {smi}: " + json.dumps(report))
+
+
 # -- export and import -----------------------------------------------------
 
 EXPORT_DIR = os.path.join(ROOT, "work_dirs", "chip_export")
@@ -3788,6 +4147,8 @@ def main() -> int:
     log(f"[dist] {smi}: " + json.dumps(dist_report))
     tools_launches, tools_report = phase(phase_tools)
     log(f"[tools] {smi}: " + json.dumps(tools_report))
+    study_launches, study_report = phase(phase_study)
+    log(f"[study] {smi}: " + json.dumps(study_report))
     log(f"[phase] seconds {json.dumps(secs)}")
 
     kernels = [
@@ -3799,6 +4160,9 @@ def main() -> int:
          # the tools path (phase_tools): verify_device_kernels, the
          # profiles, bench_train_step, validate_training, tools/test.py
          "launches_tools": tools_launches["greedy_nms"],
+         # the last modules (phase_study): compare_inference, the
+         # rehearsal's two trainers, the band fixture, Detector.mesh
+         "launches_study": study_launches["greedy_nms"],
          # the WIDER sweeps with --device-nms, mode 0 and mode 2
          "launches_wider": wider_launches["greedy_nms"],
          # the eval hook of the training CLI (phase_fit)
@@ -3821,6 +4185,9 @@ def main() -> int:
          # the tools path (phase_tools): verify_device_kernels, the
          # profiles, bench_train_step, validate_training, tools/test.py
          "launches_tools": tools_launches["fused_conv_dp"],
+         # the last modules (phase_study): compare_inference, the
+         # rehearsal's two trainers, the band fixture, Detector.mesh
+         "launches_study": study_launches["fused_conv_dp"],
          # of those, the launches of the bf16 (tensor-core) route
          "launches_mma": serve_launches["fused_conv_dp_mma"],
          # a fused Detector's solo detects on the WIDER path: the sweep's
@@ -3848,6 +4215,9 @@ def main() -> int:
          # the tools path (phase_tools): verify_device_kernels, the
          # profiles, bench_train_step, validate_training, tools/test.py
          "launches_tools": tools_launches["simota_streamed"],
+         # the last modules (phase_study): compare_inference, the
+         # rehearsal's two trainers, the band fixture, Detector.mesh
+         "launches_study": study_launches["simota_streamed"],
          # the training CLI: shipped, resumed and fused runs (phase_fit)
          "launches_training_cli": fit_launches["simota_streamed"],
          # the training CLI with data.device_aug=true: 12 steps, the
@@ -3867,6 +4237,9 @@ def main() -> int:
          # the tools path (phase_tools): verify_device_kernels, the
          # profiles, bench_train_step, validate_training, tools/test.py
          "launches_tools": tools_launches["convdp_bwd"],
+         # the last modules (phase_study): compare_inference, the
+         # rehearsal's two trainers, the band fixture, Detector.mesh
+         "launches_study": study_launches["convdp_bwd"],
          # of those, the launches of the bf16 (tensor-core) route
          "launches_mma": fused_launches["convdp_bwd_mma"],
          # the training CLI's fused run (phase_fit)
@@ -3880,6 +4253,9 @@ def main() -> int:
          # the tools path (phase_tools): verify_device_kernels, the
          # profiles, bench_train_step, validate_training, tools/test.py
          "launches_tools": tools_launches["convdp_cm"],
+         # the last modules (phase_study): compare_inference, the
+         # rehearsal's two trainers, the band fixture, Detector.mesh
+         "launches_study": study_launches["convdp_cm"],
          # of those, the launches of the bf16 (tensor-core) route
          "launches_mma": cm_mma, "max_abs_err": cm_err, **cm_t},
     ]

@@ -13,7 +13,9 @@ Layout:
                    (train mode: JAX's BatchNorm algebra, GhostBN);
                    fused.py folds BN and runs the fused-unit forward
   ops/             priors, boxes, losses, SimOTA assignment, a bilinear
-                   resize with cv2.resize's bytes; fused
+                   resize with cv2.resize's bytes, OpenCV's uint8 colour
+                   conversions (color.py) and float32 perspective warp
+                   (warp.py); fused
                    ConvDPUnit (forward, trainable backward, channels-major
                    variant), greedy NMS and streamed SimOTA (each a
                    hand-written CUDA kernel beside its plain PyTorch
@@ -29,10 +31,12 @@ Layout:
   data/            labelv2 parser, decoded-image (.npy) cache, the train
                    augmentations (crop, cv2-exact resize, flip), the
                    dataset, the forked-worker TrainLoader and the
-                   side-stream device_prefetch
+                   side-stream device_prefetch; device-side augmentation;
+                   the extended library (aug_extra, auto_augment)
   eval/            Detector (preprocess -> forward -> decode -> NMS, the
-                   WIDER sweep, TTA); the WIDER protocol and VOC mAP; the
-                   in-training WIDER eval hook
+                   WIDER sweep, TTA, Detector.mesh over several devices);
+                   the WIDER protocol and VOC mAP; the in-training WIDER
+                   eval hook
   export/          ONNX (own protobuf codec; files byte-equal to the JAX
                    package's), the libfacedetection C++ weight file,
                    TFLite (TensorFlow, imported lazily), the ONNX import
@@ -41,12 +45,21 @@ Layout:
                    (csrc/host_nms.cpp, a copy of the JAX package's source)
   apis.py          init_detector (also from a training checkpoint) /
                    inference_detector / train_detector / random seeds
-  tools/           train (the training CLI; smoke_data for --smoke),
-                   test_widerface (WIDER val AP), detect_image (one
-                   image; .npy without OpenCV), yunet2onnx / yunet2cpp /
-                   yunet2tflite / get_flops, make_synth_wider (GT .mat
-                   writer, base-tier renders), bench_convdp_cm
-                   (channels-major ConvDP micro-bench)
+  tools/           train (the training CLI; smoke_data for --smoke;
+                   dist_train.sh), test_widerface (WIDER val AP), test
+                   (VOC mAP), detect_image (one image; .npy without
+                   OpenCV), yunet2onnx / yunet2cpp / yunet2tflite /
+                   get_flops, make_synth_wider (the synthetic WIDER
+                   generator, both tiers; renders need OpenCV),
+                   compare_inference (cross-engine FPS and AP),
+                   run_rehearsal (kill, auto-resume, bit-exact check),
+                   ema_ab_table, export_band_fixture, quant_ap_study
+                   (TensorFlow host), verify_device_kernels,
+                   profile_serve / profile_train_step, bench_train_step /
+                   bench_input_pipeline / bench_resample /
+                   bench_convdp_cm, validate_training, and the small data
+                   CLIs (print_config, subset_labelv2, get_image_metas,
+                   build_decoded_cache, browse_dataset)
 
 Training on the CPU (the tests' way):
   from yunet_tpu_torch.tools.train import main

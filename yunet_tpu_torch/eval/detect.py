@@ -10,14 +10,18 @@ rescale — counterpart of ``yunet_tpu/eval/detect.py``.
     and one packed readback);
   * ``Detector.detect_sweep``: the WIDER sweep over many images of varying
     sizes, grouped by canvas, in ladder-sized batches;
-    ``Detector.detect_tta``: multi-scale and flip test-time augmentation.
+    ``Detector.detect_tta``: multi-scale and flip test-time augmentation;
+  * ``Detector.mesh``: several devices driven by one process, with
+    ``detect_batch``'s rows split over them.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import logging
 import time
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -122,6 +126,15 @@ class Detector:
     folded: a pre-folded tree (``export/onnx_import.py:load_onnx_params``)
     in place of a model: the detector then runs fused and holds no model
     (``model_or_state`` is None, ``self.model`` too).
+
+    mesh: None (the default), or a sequence of torch devices set after
+    construction (``det.mesh = ["cuda:0", "cuda:1"]``): one process then
+    drives them all. ``detect_batch`` splits its rows evenly over the mesh
+    when their count is a multiple of its size (other batches, such as the
+    sweep's sub-mesh-size ladder chunks, stay on ``self.device``). Each
+    shard runs on a replica of the model, or of the folded tree, on its
+    device, made at the first sharded call from the weights of that
+    moment and kept; setting ``mesh`` again drops the replicas.
     """
 
     def __init__(self, cfg: Config, model_or_state=None, *, device,
@@ -149,6 +162,33 @@ class Detector:
         # images whose device-NMS pre-NMS cap was saturated in the last
         # detect_batch(use_device_nms=True) call
         self.last_devnms_saturated = 0
+        self.mesh = None
+
+    @property
+    def mesh(self) -> Optional[Tuple[torch.device, ...]]:
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, devices: Optional[Sequence]) -> None:
+        self._mesh = (None if devices is None
+                      else tuple(torch.device(d) for d in devices))
+        if self._mesh is not None and not self._mesh:
+            raise ValueError("a mesh needs at least one device")
+        self._replicas: Dict[int, "Detector"] = {}
+
+    def _replica(self, i: int) -> "Detector":
+        """The Detector that runs shard i, on mesh[i]."""
+        if i not in self._replicas:
+            dev = self._mesh[i]
+            if self.model is not None:
+                self._replicas[i] = Detector(
+                    self.cfg, copy.deepcopy(self.model).to(dev), device=dev,
+                    dtype=self.dtype, fused=self.folded is not None)
+            else:
+                self._replicas[i] = Detector(
+                    self.cfg, folded=_tree_to(self.folded, dev), device=dev,
+                    dtype=self.dtype)
+        return self._replicas[i]
 
     # -- device programs ---------------------------------------------------
     def priors(self, h: int, w: int) -> torch.Tensor:
@@ -304,16 +344,28 @@ class Detector:
                 "group landscape/portrait images separately for "
                 "non-square modes, or by padded-bucket shape for "
                 "ORIGIN/AUTO")
-        x = self._input(views)
+        if self._mesh is not None and len(views) % len(self._mesh) == 0:
+            # one shard of rows a device, each on its replica: every
+            # shard's program is queued before the first readback
+            n = len(views) // len(self._mesh)
+            shards = [(self._replica(i), views[i * n:(i + 1) * n])
+                      for i in range(len(self._mesh))]
+        else:
+            shards = [(self, views)]
         if use_device_nms:
             self._check_thr(score_thr)
-            packed = self.serve_packed(x, device_nms_top_k).cpu().numpy()
+            outs = [det.serve_packed(det._input(v), device_nms_top_k)
+                    for det, v in shards]
+            packed = np.concatenate([o.cpu().numpy() for o in outs])
             self.last_devnms_saturated = int(
                 (packed[:, 0, -1] > packed.shape[1]).sum())
             return [_result(*_kept_rows(packed[i, :, :-1], score_thr), sc)
                     for i, sc in enumerate(scales)]
-        scores, boxes, kps = (a.cpu().numpy()
-                              for a in self.raw(x, conv_kernel=False))
+        outs = [det.raw(det._input(v), conv_kernel=False)
+                for det, v in shards]
+        scores, boxes, kps = (np.concatenate([o[j].cpu().numpy()
+                                              for o in outs])
+                              for j in range(3))
         return [_result(*self._host_nms(scores[i], boxes[i], kps[i],
                                         score_thr), sc)
                 for i, sc in enumerate(scales)]
@@ -483,6 +535,23 @@ class Detector:
         if max_dets is not None and max_dets > 0:
             keep = keep[:max_dets]
         return np.concatenate([bv[keep], sv[keep, None]], axis=-1), kv[keep]
+
+
+def _tree_to(tree, device):
+    """A folded tree (dicts, lists, FoldedUnits of tensors) rebuilt with
+    every tensor on ``device``; a tensor already there is shared (the
+    detector only reads it)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _tree_to(getattr(tree, f.name), device)
+            for f in dataclasses.fields(tree)})
+    return tree
 
 
 def _kept_rows(packed: np.ndarray, score_thr: float):

@@ -118,6 +118,9 @@ def make_wider_eval_hook(cfg: Config, *, device,
     mesh: the ranks of data-parallel training (every rank calls the hook
     at the same steps): rank r sweeps records[r::world] on ``device``,
     rank 0 gathers the detections and returns the APs, the others None.
+    The hook never binds ``Detector.mesh`` (one process driving several
+    cards, JAX's eval hook binds its local devices): each rank of the port
+    drives one card, so its local mesh would hold one device.
     """
     if mesh is not None:
         mesh.check()

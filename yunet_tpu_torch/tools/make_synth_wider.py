@@ -1,11 +1,40 @@
-"""Parts of ``tools/make_synth_wider.py``: the WIDER val ground-truth
-writer (``write_gt_mats``; numpy and scipy) and the base-tier image
-renderer (``make_image``, the TFLite exporter's default int8 calibration
-images; it draws with OpenCV, imported when it runs). The hard tier's
-renderers are not part of this package."""
+"""Generate a synthetic WIDER-Face-shaped dataset on disk — counterpart of
+``tools/make_synth_wider.py``, drawing the same random numbers and the
+same pixels for the same seed.
+
+  python -m yunet_tpu_torch.tools.make_synth_wider --out data/synth_wider \\
+      --tier hard --train-n 600 --val-n 64
+
+Layout (the WIDER layout: labelv2 files, images, val GT .mat files):
+
+  <out>/train/images/<event>/<stem>.jpg       mixed resolutions
+  <out>/train/labelv2.txt                     # path W H + face rows
+  <out>/val/images/... , <out>/val/labelv2.txt
+  <out>/val/gt/wider_{face,easy,medium,hard}_val.mat
+
+Faces are structured renders (skin-tone ellipse, dark eyes, nose, mouth)
+with the canonical 5-landmark layout, so a detector can learn
+localization and keypoint regression from this data. Difficulty subsets
+mirror WIDER semantics: easy within medium within hard by face size.
+
+Two difficulty tiers (--tier):
+
+  base  clean renders, faces >= 12 px.
+  hard  a WIDER-hard-like operating point: faces down to ~5 px, dense
+        crowd images (tens of tiny faces), partial occlusion (occluded
+        landmarks annotated invisible, labelv2 -1 rows), border
+        truncation, image-level blur/noise/low-contrast, face-like
+        distractors that are NOT annotated, and ignore regions (labelv2
+        5-value ignore lines; in the val GT face_bbx_list but in no keep
+        list, the official ignore semantics).
+
+The renderers draw with OpenCV, imported when they run: this is a tool
+for a host that has OpenCV. ``write_gt_mats`` needs only numpy and scipy.
+"""
 
 from __future__ import annotations
 
+import argparse
 import os
 
 import numpy as np
@@ -105,6 +134,93 @@ def draw_face(img, cx, cy, s, rng):
     return bbox, kps
 
 
+# Difficulty tiers. "base" is the clean set; "hard" approximates the
+# WIDER-hard operating point, whose difficulty comes from tiny, occluded
+# and crowded faces.
+TIERS = {
+    "base": dict(min_face=12, max_faces=14, smax_frac=0.5,
+                 crowd_frac=0.0, crowd_faces=(0, 0), occl_frac=0.0,
+                 trunc_frac=0.0, ignore_frac=0.0, distractors=(0, 0),
+                 degrade=False),
+    # tinier faces, crowds and stronger blur than base: a trained
+    # yunet_n lands mid-range on hard AP here instead of ~1.0
+    "hard": dict(min_face=4, max_faces=18, smax_frac=0.45,
+                 crowd_frac=0.35, crowd_faces=(24, 110), occl_frac=0.35,
+                 trunc_frac=0.20, ignore_frac=0.06, distractors=(3, 12),
+                 degrade=True),
+}
+
+
+def occlude_face(img, bbox, kps, rng):
+    """Cover 25-55% of the face from one side with a solid occluder;
+    landmarks under it become invisible (labelv2 all -1 row -> weight 0)."""
+    import cv2
+
+    x1, y1, x2, y2 = bbox
+    w, h = x2 - x1, y2 - y1
+    frac = rng.uniform(0.25, 0.55)
+    side = rng.randint(4)
+    if side == 0:    # left strip
+        ox1, oy1, ox2, oy2 = x1, y1, x1 + frac * w, y2
+    elif side == 1:  # right strip
+        ox1, oy1, ox2, oy2 = x2 - frac * w, y1, x2, y2
+    elif side == 2:  # bottom strip
+        ox1, oy1, ox2, oy2 = x1, y2 - frac * h, x2, y2
+    else:            # top strip
+        ox1, oy1, ox2, oy2 = x1, y1, x2, y1 + frac * h
+    color = tuple(int(c) for c in rng.randint(0, 200, 3))
+    cv2.rectangle(img, (int(ox1), int(oy1)), (int(ox2), int(oy2)),
+                  color, -1)
+    covered = ((kps[:, 0] >= ox1) & (kps[:, 0] <= ox2)
+               & (kps[:, 1] >= oy1) & (kps[:, 1] <= oy2))
+    kps[covered] = -1.0
+    return kps
+
+
+def draw_distractor(img, cx, cy, s, rng):
+    """Face-LIKE clutter that is not annotated: skin-tone blobs that are
+    featureless, feature-scrambled, or layout-inverted."""
+    import cv2
+
+    kind = rng.randint(3)
+    axes = (max(int(0.40 * s), 2), max(int(0.50 * s), 2))
+    cv2.ellipse(img, ((cx, cy), (2 * axes[0], 2 * axes[1]),
+                      float(rng.uniform(-30, 30))),
+                _skin(rng), -1, lineType=cv2.LINE_AA)
+    dark = (int(rng.randint(10, 60)),) * 3
+    er = max(int(0.07 * s), 1)
+    if kind == 1:      # scrambled: dots at random interior positions
+        for _ in range(rng.randint(2, 5)):
+            px = cx + rng.uniform(-0.30, 0.30) * s
+            py = cy + rng.uniform(-0.40, 0.40) * s
+            cv2.circle(img, (int(px), int(py)), er, dark, -1,
+                       lineType=cv2.LINE_AA)
+    elif kind == 2:    # inverted layout: mouth above, eyes below
+        cv2.line(img, (int(cx - 0.15 * s), int(cy - 0.25 * s)),
+                 (int(cx + 0.15 * s), int(cy - 0.25 * s)),
+                 (40, 40, 120), max(er // 2, 1), lineType=cv2.LINE_AA)
+        for dx in (-0.18 * s, 0.18 * s):
+            cv2.circle(img, (int(cx + dx), int(cy + 0.15 * s)), er, dark,
+                       -1, lineType=cv2.LINE_AA)
+
+
+def degrade_image(img, rng):
+    """Low contrast + blur + sensor noise (applied image-wide AFTER all
+    drawing, so tiny faces genuinely approach the detectability floor)."""
+    import cv2
+
+    out = img.astype(np.float32)
+    alpha = rng.uniform(0.45, 1.0)          # contrast compression
+    beta = rng.uniform(-20, 40)             # brightness shift
+    out = out * alpha + beta
+    sigma = rng.uniform(0.0, 2.8)
+    if sigma > 0.3:
+        k = int(sigma * 3) * 2 + 1
+        out = cv2.GaussianBlur(out, (k, k), sigma)
+    out = out + rng.normal(0, rng.uniform(2, 14), out.shape)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
 def make_background(rng, h, w):
     """Smooth gradient + noise + box/circle distractors (non-face clutter)."""
     import cv2
@@ -139,33 +255,67 @@ def _try_place(boxes, cand, thr):
     return True
 
 
-def make_image(rng, w, h):
-    """One base-tier synthetic image + its face annotations: the original's
-    ``make_image(rng, w, h)`` (TIERS["base"]: 1-14 faces from 12 px to
-    half the short side, no crowds, truncation, occlusion, distractors,
-    ignore marks or degradation), drawing the same random numbers.
+def make_image(rng, w, h, tier=TIERS["base"]):
+    """One synthetic image + its face annotations.
 
     Returns (img, boxes (n,4) xyxy, kps (n,5,3), ignore (n,) bool)."""
     img = make_background(rng, h, w)
     boxes, kpss = [], []
-    rng.uniform()                              # the crowd draw (never)
-    n = int(rng.randint(1, 15))
-    sizes = np.exp(rng.uniform(np.log(12), np.log(0.5 * min(w, h)), n))
+    min_face = tier["min_face"]
+    crowd = rng.uniform() < tier["crowd_frac"]
+    if crowd:
+        n = int(rng.randint(tier["crowd_faces"][0],
+                            tier["crowd_faces"][1] + 1))
+        # tiny faces scattered around a few cluster centers
+        centers = rng.uniform([0.15 * w, 0.15 * h], [0.85 * w, 0.85 * h],
+                              (rng.randint(1, 4), 2))
+        sizes = np.exp(rng.uniform(np.log(min_face), np.log(28.0), n))
+        spread = 0.18 * min(w, h) * rng.uniform(1.0, 2.5)
+        overlap_thr = 0.35
+    else:
+        n = int(rng.randint(1, tier["max_faces"] + 1))
+        smax = tier["smax_frac"] * min(w, h)
+        sizes = np.exp(rng.uniform(np.log(min_face), np.log(smax), n))
+        centers, spread, overlap_thr = None, None, 0.15
     for s in sizes:
         s = float(s)
-        rng.uniform()                          # the truncation draw
+        trunc = rng.uniform() < tier["trunc_frac"]
         placed = False
         for _try in range(25):
-            cx = rng.uniform(0.55 * s, w - 0.55 * s)
-            cy = rng.uniform(0.6 * s, h - 0.6 * s)
+            if centers is not None:
+                c = centers[rng.randint(len(centers))]
+                cx = float(np.clip(c[0] + rng.normal(0, spread),
+                                   0.55 * s, w - 0.55 * s))
+                cy = float(np.clip(c[1] + rng.normal(0, spread),
+                                   0.6 * s, h - 0.6 * s))
+            elif trunc:
+                # center near a border so the box clips (partial face)
+                edge = rng.randint(4)
+                if edge == 0:
+                    cx, cy = rng.uniform(-0.2 * s, 0.35 * s), \
+                        rng.uniform(0.6 * s, h - 0.6 * s)
+                elif edge == 1:
+                    cx, cy = w + rng.uniform(-0.35 * s, 0.2 * s), \
+                        rng.uniform(0.6 * s, h - 0.6 * s)
+                elif edge == 2:
+                    cx, cy = rng.uniform(0.55 * s, w - 0.55 * s), \
+                        rng.uniform(-0.2 * s, 0.4 * s)
+                else:
+                    cx, cy = rng.uniform(0.55 * s, w - 0.55 * s), \
+                        h + rng.uniform(-0.4 * s, 0.2 * s)
+            else:
+                cx = rng.uniform(0.55 * s, w - 0.55 * s)
+                cy = rng.uniform(0.6 * s, h - 0.6 * s)
             cand = np.asarray([cx - 0.5 * s, cy - 0.6 * s,
                                cx + 0.5 * s, cy + 0.6 * s], np.float32)
-            if _try_place(boxes, cand, 0.15):
+            if _try_place(boxes, cand, overlap_thr):
                 placed = True
                 break
         if not placed:
             continue
         bbox, kps = draw_face(img, cx, cy, s, rng)
+        if tier["occl_frac"] and rng.uniform() < tier["occl_frac"]:
+            kps = occlude_face(img, bbox, kps, rng)
         # annotation boxes are clipped to the image like real labelv2
         bbox = np.asarray([max(bbox[0], 0.0), max(bbox[1], 0.0),
                            min(bbox[2], float(w)), min(bbox[3], float(h))],
@@ -179,11 +329,106 @@ def make_image(rng, w, h):
         bbox, kps = draw_face(img, w / 2, h / 2, s, rng)
         boxes.append(bbox)
         kpss.append(kps)
+    lo, hi = tier["distractors"]
+    if hi:
+        for _ in range(rng.randint(lo, hi + 1)):
+            s = float(np.exp(rng.uniform(np.log(min_face),
+                                         np.log(0.3 * min(w, h)))))
+            for _try in range(15):
+                cx = rng.uniform(0.55 * s, max(w - 0.55 * s, 0.56 * s))
+                cy = rng.uniform(0.6 * s, max(h - 0.6 * s, 0.61 * s))
+                cand = np.asarray([cx - 0.5 * s, cy - 0.6 * s,
+                                   cx + 0.5 * s, cy + 0.6 * s], np.float32)
+                if _try_place(boxes, cand, 0.05):   # keep off real faces
+                    draw_distractor(img, cx, cy, s, rng)
+                    break
+    if tier["degrade"]:
+        img = degrade_image(img, rng)
     boxes = np.stack(boxes)
     kpss = np.stack(kpss)
     heights = boxes[:, 3] - boxes[:, 1]
-    ign = rng.uniform(size=len(boxes)) < 0.0
+    ign = rng.uniform(size=len(boxes)) < tier["ignore_frac"]
     ign |= heights < 4.0   # sub-detectable slivers are always ignore
     if ign.all():          # keep >= 1 usable face per image
         ign[int(np.argmax(heights))] = False
     return img, boxes, kpss, ign
+
+
+_RESOLUTIONS = [(1024, 768), (1024, 680), (900, 600), (800, 600),
+                (768, 1024), (640, 480), (512, 384), (1000, 562),
+                (600, 800), (512, 768)]
+
+
+def _face_lines(boxes, kpss, ign):
+    """labelv2 rows: full 19-value lines for usable faces, 5-value
+    ``x1 y1 x2 y2 1`` ignore lines (data/labelv2.py parse contract)."""
+    lines = []
+    for b, k, i in zip(boxes, kpss, ign):
+        vals = [f"{v:.1f}" for v in b]
+        if i:
+            lines.append(" ".join(vals) + " 1")
+            continue
+        for p in k:
+            if np.all(p == -1):
+                vals += ["-1", "-1", "-1"]   # occluded: invisible
+            else:
+                vals += [f"{p[0]:.1f}", f"{p[1]:.1f}", f"{p[2]:.0f}"]
+        lines.append(" ".join(vals))
+    return lines
+
+
+def generate_split(out_dir, n_images, seed, events=4, jpeg_quality=90,
+                   tier=TIERS["base"]):
+    """Write images + labelv2.txt; return per-event annotation lists."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    img_root = os.path.join(out_dir, "images")
+    lines = []
+    per_event = {}
+    for i in range(n_images):
+        ev = f"{i % events}--Synth"
+        ev_dir = os.path.join(img_root, ev)
+        os.makedirs(ev_dir, exist_ok=True)
+        w, h = _RESOLUTIONS[rng.randint(len(_RESOLUTIONS))]
+        img, boxes, kpss, ign = make_image(rng, w, h, tier)
+        stem = f"synth_{i:04d}"
+        path = os.path.join(ev_dir, stem + ".jpg")
+        q = (int(rng.randint(45, jpeg_quality + 1)) if tier["degrade"]
+             else jpeg_quality)
+        assert cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_QUALITY, q])
+        lines.append(f"# {ev}/{stem}.jpg {w} {h}")
+        lines.extend(_face_lines(boxes, kpss, ign))
+        per_event.setdefault(ev, []).append((stem, boxes, kpss, ign))
+    with open(os.path.join(out_dir, "labelv2.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return per_event
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--out", default="data/synth_wider")
+    p.add_argument("--train-n", type=int, default=600)
+    p.add_argument("--val-n", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--jpeg-quality", type=int, default=90)
+    p.add_argument("--tier", choices=sorted(TIERS), default="base")
+    args = p.parse_args(argv)
+
+    tier = TIERS[args.tier]
+    train_dir = os.path.join(args.out, "train")
+    val_dir = os.path.join(args.out, "val")
+    os.makedirs(train_dir, exist_ok=True)
+    os.makedirs(val_dir, exist_ok=True)
+    generate_split(train_dir, args.train_n, args.seed,
+                   jpeg_quality=args.jpeg_quality, tier=tier)
+    per_event = generate_split(val_dir, args.val_n, args.seed + 7919,
+                               jpeg_quality=args.jpeg_quality, tier=tier)
+    write_gt_mats(os.path.join(val_dir, "gt"), per_event)
+    print(f"wrote {args.train_n} train + {args.val_n} val images "
+          f"({args.tier} tier) under {args.out}")
+    return args.out
+
+
+if __name__ == "__main__":
+    main()
