@@ -1,10 +1,9 @@
 """yunet_tpu_torch/utils/profiling.py and utils/trace_profile.py on the
-CPU: profile_time's line and StepTimer's means equal the JAX package's
-under one patched clock; trace() writes a chrome trace, which holds no
-device event here; aggregate_trace, categorize and report on a trace
-written in the test with device-lane events named as the card names them
-(exact sums, counts and categories); device_rows and port_kernels on a
-stand-in profile."""
+CPU: profile_time's line equals the JAX package's under one patched
+clock; trace() writes a chrome trace, which holds no device event here;
+aggregate_trace, categorize and report on a trace written in the test
+with device-lane events named as the card names them (exact sums, counts
+and categories); device_rows and port_kernels on a stand-in profile."""
 
 import collections
 import gzip
@@ -46,18 +45,6 @@ def test_profile_time_line_equals_jax(monkeypatch, capsys):
     with profiling.profile_time("y", enabled=False):
         pass
     assert got == ["x: 500.00 ms"] and capsys.readouterr().out == ""
-
-
-def test_step_timer_equals_jax(monkeypatch):
-    ticks = [0.0, 0.5, 1.25, 1.5, 3.0, 3.1]
-    means = []
-    for mod in (jax_profiling, profiling):
-        _clock(monkeypatch, ticks)
-        t = mod.StepTimer(window=3)
-        means.append([t.tick() for _ in ticks])
-    assert means[0] == means[1]
-    assert means[1][0] is None and means[1][-1] == pytest.approx(
-        (0.25 + 1.5 + 0.1) / 3)
 
 
 def test_trace_writes_cpu_trace_without_device_events(tmp_path):

@@ -20,7 +20,6 @@ from __future__ import annotations
 import copy
 import dataclasses
 import logging
-import time
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -34,6 +33,7 @@ from ..ops.boxes import bbox_decode, fuse_score, kps_decode
 from ..ops.nms import device_nms, device_nms_batched
 from ..ops.priors import grid_priors
 from ..ops.resize import resize
+from ..utils.profiling import laps, span
 from .. import native
 
 
@@ -205,17 +205,19 @@ class Detector:
         """x: (B, H, W, 3) uint8 or float raw BGR on the device ->
         scores (B, P), boxes (B, P, 4), kps (B, P, 2K), all f32.
         conv_kernel: run a fused detector's units through the kernel."""
-        xc = x.to(self.dtype).permute(0, 3, 1, 2)
-        if self.folded is not None:
-            flat = flatten_level_outputs(fused_forward(
-                self.folded, xc, self.cfg.model, use_kernel=conv_kernel))
-        else:
-            flat = self.model.forward_flat(xc)
-        priors = self.priors(x.shape[1], x.shape[2])
-        scores = fuse_score(flat["cls"][..., 0].float(),
-                            flat["obj"][..., 0].float())
-        boxes = bbox_decode(priors, flat["bbox"].float())
-        kps = kps_decode(priors, flat["kps"].float())
+        with span("yunet.trunk"):
+            xc = x.to(self.dtype).permute(0, 3, 1, 2)
+            if self.folded is not None:
+                flat = flatten_level_outputs(fused_forward(
+                    self.folded, xc, self.cfg.model, use_kernel=conv_kernel))
+            else:
+                flat = self.model.forward_flat(xc)
+        with span("yunet.decode"):
+            priors = self.priors(x.shape[1], x.shape[2])
+            scores = fuse_score(flat["cls"][..., 0].float(),
+                                flat["obj"][..., 0].float())
+            boxes = bbox_decode(priors, flat["bbox"].float())
+            kps = kps_decode(priors, flat["kps"].float())
         return scores, boxes, kps
 
     @torch.inference_mode()
@@ -224,12 +226,13 @@ class Detector:
         (K, 6 + 2K) rows [x1 y1 x2 y2 score keep kps...]
         (yunet_tpu/eval/detect.py:162-185)."""
         scores, boxes, kps = self.raw(x, conv_kernel=True)
-        dets, keep, idx = device_nms(
-            boxes[0], scores[0], top_k=top_k,
-            iou_thr=self.cfg.test.nms_iou_thr,
-            score_thr=self.cfg.test.score_thr)
-        return torch.cat([dets, keep[:, None].to(dets.dtype),
-                          kps[0][idx]], dim=-1)
+        with span("yunet.nms"):
+            dets, keep, idx = device_nms(
+                boxes[0], scores[0], top_k=top_k,
+                iou_thr=self.cfg.test.nms_iou_thr,
+                score_thr=self.cfg.test.score_thr)
+            return torch.cat([dets, keep[:, None].to(dets.dtype),
+                              kps[0][idx]], dim=-1)
 
     @torch.inference_mode()
     def serve_packed(self, x: torch.Tensor, top_k: int) -> torch.Tensor:
@@ -238,24 +241,27 @@ class Detector:
         keep kps... n_above], n_above being the image's candidate count
         above the score threshold (yunet_tpu/eval/detect.py:376-391)."""
         scores, boxes, kps = self.raw(x, conv_kernel=False)
-        dets, keep, idx = device_nms_batched(
-            boxes, scores, top_k=top_k, iou_thr=self.cfg.test.nms_iou_thr,
-            score_thr=self.cfg.test.score_thr)
-        n_above = (scores >= self.cfg.test.score_thr).sum(
-            1, dtype=torch.float32)
-        meta = n_above[:, None, None].expand(*keep.shape, 1)
-        kps_sel = torch.gather(kps, 1, idx[..., None].expand(
-            *idx.shape, kps.shape[-1]))
-        return torch.cat([dets, keep[..., None].to(dets.dtype), kps_sel,
-                          meta], dim=-1)
+        with span("yunet.nms"):
+            dets, keep, idx = device_nms_batched(
+                boxes, scores, top_k=top_k,
+                iou_thr=self.cfg.test.nms_iou_thr,
+                score_thr=self.cfg.test.score_thr)
+            n_above = (scores >= self.cfg.test.score_thr).sum(
+                1, dtype=torch.float32)
+            meta = n_above[:, None, None].expand(*keep.shape, 1)
+            kps_sel = torch.gather(kps, 1, idx[..., None].expand(
+                *idx.shape, kps.shape[-1]))
+            return torch.cat([dets, keep[..., None].to(dets.dtype), kps_sel,
+                              meta], dim=-1)
 
     def _input(self, imgs) -> torch.Tensor:
         """Stacked canvases -> device tensor: uint8 when the trunk is bf16
         (4x less host->device traffic, cast on the device), f32 else."""
-        x = np.stack(imgs)
-        if not (self.dtype == torch.bfloat16 and x.dtype == np.uint8):
-            x = x.astype(np.float32)
-        return torch.from_numpy(x).to(self.device)
+        with span("yunet.upload"):
+            x = np.stack(imgs)
+            if not (self.dtype == torch.bfloat16 and x.dtype == np.uint8):
+                x = x.astype(np.float32)
+            return torch.from_numpy(x).to(self.device)
 
     def _check_thr(self, score_thr: float) -> None:
         if score_thr < self.cfg.test.score_thr:
@@ -278,40 +284,47 @@ class Detector:
         coords (score-desc), kps (n, 2K), labels (n,).
 
         timings: pass a dict to receive the per-call latency budget in
-        seconds — {preproc, put, dispatch, device_readback, post}.
+        seconds — {preproc, put, dispatch, device_readback, post}, read
+        at the ends of the stage spans: yunet.letterbox; yunet.upload;
+        yunet.trunk, yunet.decode and yunet.nms; yunet.readback;
+        yunet.host_nms and yunet.result.
         ``dispatch`` ends when the device program has been queued,
         ``device_readback`` when its result is on the host: the device's
         run falls in one of the two, depending on how far the host got
         ahead of it. ``post`` holds the host NMS, if any, and the rescale.
         """
-        t = time.perf_counter
-        t0 = t()
-        score_thr = (self.cfg.test.score_thr if score_thr is None
-                     else score_thr)
-        det_img, det_scale = resize_img(img_bgr, mode, pad_divisor)
-        t1 = t()
-        x = self._input([det_img])
-        t2 = t()
-        if use_device_nms:
-            self._check_thr(score_thr)
-            top_k = max_dets or self.cfg.test.device_nms_pre
-            packed = self.detect_packed(x, top_k)
-            t3 = t()
-            packed = packed.cpu().numpy()            # ONE readback
-            t4 = t()
-            sel, kps_sel = _kept_rows(packed, score_thr)
-        else:
-            out = self.raw(x, conv_kernel=True)
-            t3 = t()
-            scores, boxes, kps = (a[0].cpu().numpy() for a in out)
-            t4 = t()
-            sel, kps_sel = self._host_nms(scores, boxes, kps, score_thr,
-                                          max_dets)
-        out = _result(sel, kps_sel, det_scale)
-        if timings is not None:
-            timings.update(preproc=t1 - t0, put=t2 - t1, dispatch=t3 - t2,
-                           device_readback=t4 - t3, post=t() - t4)
-        return out
+        with span("yunet.detect"):
+            lap = laps(timings)
+            score_thr = (self.cfg.test.score_thr if score_thr is None
+                         else score_thr)
+            with span("yunet.letterbox"):
+                det_img, det_scale = resize_img(img_bgr, mode, pad_divisor)
+            lap("preproc")
+            x = self._input([det_img])
+            lap("put")
+            if use_device_nms:
+                self._check_thr(score_thr)
+                top_k = max_dets or self.cfg.test.device_nms_pre
+                packed = self.detect_packed(x, top_k)
+                lap("dispatch")
+                with span("yunet.readback"):
+                    packed = packed.cpu().numpy()        # ONE readback
+                lap("device_readback")
+                with span("yunet.result"):
+                    out = _result(*_kept_rows(packed, score_thr), det_scale)
+            else:
+                out = self.raw(x, conv_kernel=True)
+                lap("dispatch")
+                with span("yunet.readback"):
+                    scores, boxes, kps = (a[0].cpu().numpy() for a in out)
+                lap("device_readback")
+                with span("yunet.host_nms"):
+                    sel, kps_sel = self._host_nms(scores, boxes, kps,
+                                                  score_thr, max_dets)
+                with span("yunet.result"):
+                    out = _result(sel, kps_sel, det_scale)
+            lap("post")
+            return out
 
     def detect_batch(self, imgs_bgr, mode: Union[str, Tuple[int, int]], *,
                      score_thr: Optional[float] = None,

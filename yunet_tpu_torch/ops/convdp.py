@@ -28,7 +28,9 @@ import os
 
 import torch
 import torch.nn.functional as F
+from torch.autograd import profiler as _autograd_profiler
 
+from ..utils.profiling import span
 from ._build import (CSRC_DIR, NVCC_FLAGS, NativeLib, check_cuda_status,
                      cuda_signatures)
 
@@ -117,6 +119,13 @@ def fused_conv_dp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   wd: torch.Tensor, bd: torch.Tensor, *,
                   relu: bool = True) -> torch.Tensor:
     """x: (N, H, W, Cin) -> (N, H, W, Cout) in x's dtype."""
+    if not _autograd_profiler._is_profiler_enabled:     # no span to open
+        return _fused_conv_dp(x, w1, b1, wd, bd, relu)
+    with span("yunet.k4"):
+        return _fused_conv_dp(x, w1, b1, wd, bd, relu)
+
+
+def _fused_conv_dp(x, w1, b1, wd, bd, relu):
     if x.dim() != 4 or x.shape[-1] != w1.reshape(-1, w1.shape[-1]).shape[0]:
         raise ValueError(f"x {tuple(x.shape)} does not match w1 "
                          f"{tuple(w1.shape)}")

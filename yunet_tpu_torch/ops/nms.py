@@ -23,7 +23,9 @@ import os
 from typing import Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
+from ..utils.profiling import span
 from ._build import (CSRC_DIR, NVCC_FLAGS, NativeLib, check_cuda_status,
                      cuda_signatures)
 
@@ -91,6 +93,13 @@ def greedy_nms_keep(boxes: torch.Tensor, counts: torch.Tensor,
     On the card the call is two launches (the mask and the scan) from one
     ctypes call, into a (B, K) bool keep and a (B, K, mask_words(K)) i32
     scratch mask that the kernel fills only where it needs."""
+    if not _autograd_profiler._is_profiler_enabled:     # no span to open
+        return _greedy_nms_keep(boxes, counts, iou_thr)
+    with span("yunet.nms_kernel"):
+        return _greedy_nms_keep(boxes, counts, iou_thr)
+
+
+def _greedy_nms_keep(boxes, counts, iou_thr):
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or \
             counts.shape != boxes.shape[:1]:
         raise ValueError(f"boxes {tuple(boxes.shape)} / counts "

@@ -32,7 +32,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
+from ..utils.profiling import span
 from ._build import (CSRC_DIR, NVCC_FLAGS, NativeLib, check_cuda_status,
                      cuda_signatures)
 from .boxes import pairwise_iou
@@ -227,6 +229,17 @@ def streamed_simota(scores: torch.Tensor, priors: torch.Tensor,
     here resolves the library once and makes no launch of its own. The
     kernel costs only the pairs that can reach an output (see
     ``csrc/simota.cu``), which needs the weights checked below."""
+    args = (scores, priors, decoded, gt_bboxes, gt_onehot, gt_valid,
+            center_radius, k, iou_weight, cls_weight, eps)
+    if not _autograd_profiler._is_profiler_enabled:     # no span to open
+        return _streamed_simota(*args)
+    with span("yunet.k1"):
+        return _streamed_simota(*args)
+
+
+def _streamed_simota(scores, priors, decoded, gt_bboxes, gt_onehot,
+                     gt_valid, center_radius, k, iou_weight, cls_weight,
+                     eps):
     bsz, p, g = _check(scores, priors, decoded, gt_bboxes, gt_onehot,
                        gt_valid, k)
     if scores.device.type == "cpu":

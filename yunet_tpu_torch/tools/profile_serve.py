@@ -7,8 +7,10 @@ trunk on the library convs, decode, the whole-batch greedy-NMS kernel) at
 320x320. It runs one call to warm up, traces ``--iters`` calls under
 ``utils/profiling.trace``, and prints the per-category / per-op device
 table (on the card it names the NMS kernel's ``nms_mask_kernel`` and
-``nms_scan_kernel``) and the device-time throughput bound. A run on the
-CPU has no device lane and ends in that error.
+``nms_scan_kernel``), the host time of the program's spans
+(``yunet.trunk``, ``yunet.nms``, ``yunet.nms_kernel``, ...) and the
+device-time throughput bound. A run on the CPU has no device lane and
+ends in that error.
 
 Weights: ``--weights`` (a flat .npz of JAX leaves, a reference .pth or a
 training checkpoint directory); by default tests/fixtures/r04_ema.npz for
@@ -57,7 +59,8 @@ def main(argv=None, *, device="cuda"):
 
     from ..apis import init_detector
     from ..utils.profiling import default_trace_dir, trace
-    from ..utils.trace_profile import NoDeviceEvents, aggregate_trace, report
+    from ..utils.trace_profile import (NoDeviceEvents, aggregate_trace,
+                                       report, span_totals)
 
     out_dir = args.out or default_trace_dir("yunet_serve_trace")
     weights = args.weights or (R04 if args.config == "yunet_n" else None)
@@ -83,7 +86,7 @@ def main(argv=None, *, device="cuda"):
     except (FileNotFoundError, NoDeviceEvents) as e:
         print(e)
         return None
-    report(tot, cnt, args.iters, args.top)
+    report(tot, cnt, args.iters, args.top, spans=span_totals(out_dir))
     ms = sum(tot.values()) / args.iters / 1e3
     print(f"\ndevice-time throughput bound: "
           f"{args.batch / (ms / 1e3):.0f} img/s at batch {args.batch} "

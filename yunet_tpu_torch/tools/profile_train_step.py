@@ -3,10 +3,11 @@ trace — counterpart of ``tools/misc/profile_train_step.py``.
 
 Runs one step to warm up, then ``--steps`` steps under
 ``utils/profiling.trace`` and prints the device time by category and the
-top device kernels (one step's worth, averaged over the traced steps). On
-the card the table names the port's kernels (e.g. the streamed SimOTA's
-``valid_best_kernel`` and ``topk_kernel``). A run on the CPU has no
-device lane and ends in that error.
+top device kernels (one step's worth, averaged over the traced steps),
+then the host time of the kernel wrappers' spans (``yunet.k1``, the
+streamed SimOTA's). On the card the table names the port's kernels (e.g.
+the streamed SimOTA's ``valid_best_kernel`` and ``topk_kernel``). A run
+on the CPU has no device lane and ends in that error.
 
   python -m yunet_tpu_torch.tools.profile_train_step --batch 16 --steps 3
 """
@@ -62,7 +63,8 @@ def main(argv=None, *, device="cuda"):
     from ..config import yunet_n
     from ..train import init_train_state, make_train_step
     from ..utils.profiling import default_trace_dir, trace
-    from ..utils.trace_profile import NoDeviceEvents, aggregate_trace, report
+    from ..utils.trace_profile import (NoDeviceEvents, aggregate_trace,
+                                       report, span_totals)
     from .bench_train_step import make_batch
 
     out_dir = args.out or default_trace_dir("yunet_trace")
@@ -94,7 +96,7 @@ def main(argv=None, *, device="cuda"):
     except (FileNotFoundError, NoDeviceEvents) as e:
         print(e)
         return None
-    report(tot, cnt, args.steps, args.top)
+    report(tot, cnt, args.steps, args.top, spans=span_totals(out_dir))
     return tot, cnt
 
 

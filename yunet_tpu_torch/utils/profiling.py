@@ -5,6 +5,19 @@
 asynchronous CUDA launches (it synchronizes the devices of the CUDA
 tensors it is given); ``trace`` wraps a region with ``torch.profiler`` and
 writes a chrome trace that ``utils/trace_profile.py`` reads.
+
+``span`` names a region of the program (``yunet.<stage>``) on the
+profiler's clock: while ``torch.profiler`` records, it is a range that
+the profiler keeps as a host event of that name (``cpu_op`` in the chrome
+trace, beside the card's kernels and copies); otherwise it is one shared
+no-op and costs a read of the profiler's enabled flag. Spans nest on the
+calling thread: a stage lies inside the call that runs it. A kernel
+wrapper, called tens of times a detect, reads the flag itself and opens
+no span at all while no profiler records: in place, on an H100's host, a
+no-op ``with span()`` cost 0.6-0.9 us a call where a warm loop reads
+0.1-0.2. ``laps`` reads the clock at the same stage boundaries for a
+caller's timings dict, so its latency budget and the trace share one set
+of boundaries.
 """
 
 from __future__ import annotations
@@ -15,6 +28,8 @@ import time
 from typing import Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
 
 def _cuda_devices(tree) -> set:
@@ -72,21 +87,44 @@ def trace(log_dir: Optional[str] = None):
         log_dir, f"{time.time_ns()}.pt.trace.json.gz"))
 
 
-class StepTimer:
-    """Rolling images/sec meter (IterTimerHook counterpart)."""
+class _Off:
+    """The span of a region while no profiler records. Its enter and exit
+    are one bound C method that takes any arguments and returns "" (false,
+    so an exception passes through): no Python frame runs."""
+    __slots__ = ()
+    __enter__ = __exit__ = "".format
 
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._times = []
-        self._last = None
 
-    def tick(self) -> Optional[float]:
+_OFF = _Off()
+
+
+def span(name: str):
+    """A range named ``name`` while torch.profiler records, else the shared
+    no-op; use as ``with span("yunet.trunk"):``. The range is torch's C
+    one: about 2 us an enter and exit on an H100's host under the
+    profiler, where ``record_function`` takes about 15."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _OFF
+
+
+# a C callable that takes a key and does nothing: the lap of an untimed call
+_NO_LAP = "".format
+
+
+def laps(timings: Optional[dict]):
+    """The stage clock of one call: ``lap(key)`` sets ``timings[key]`` to
+    the host seconds since the previous lap (the first: since ``laps``).
+    Call it at the stage boundaries, where the stages' spans end, so one
+    clock read closes a stage and opens the next. Without a dict the lap
+    is a no-op and no clock is read."""
+    if timings is None:
+        return _NO_LAP
+    last = time.perf_counter()
+
+    def lap(key: str) -> None:
+        nonlocal last
         now = time.perf_counter()
-        if self._last is not None:
-            self._times.append(now - self._last)
-            if len(self._times) > self.window:
-                self._times.pop(0)
-        self._last = now
-        if self._times:
-            return sum(self._times) / len(self._times)
-        return None
+        timings[key] = now - last
+        last = now
+    return lap

@@ -4,7 +4,8 @@ trace — counterpart of ``yunet_tpu/utils/trace_profile.py``.
 Used by ``tools/profile_train_step.py`` and ``tools/profile_serve.py``:
 read the device lanes of a chrome trace (``utils/profiling.trace``), sum
 them by kernel name, bin each name into a category by what the card calls
-it, and print a per-category / per-op table and the port's own kernels.
+it, and print a per-category / per-op table, the port's own kernels and
+the host time of the program's spans (``utils/profiling.span``).
 JAX's ``HloMaps`` has no counterpart: eager torch compiles no HLO, and a
 kernel's name is all the trace says of it. Nor has JAX's output-bytes
 column: a kernel event carries no result shape.
@@ -20,10 +21,12 @@ import glob
 import gzip
 import json
 import os
-from typing import Counter, Dict, List, Tuple
+from typing import Counter, Dict, List, Optional, Tuple
 
 # chrome-trace categories of the device lane: kernels, copies, fills
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the program's spans (utils/profiling.span): host events named yunet.*
+SPAN_PREFIX = "yunet."
 
 
 class NoDeviceEvents(RuntimeError):
@@ -73,6 +76,23 @@ def _newest_trace(out_dir: str) -> str:
     return max(paths, key=os.path.getmtime)
 
 
+def _sum_events(path: str, keep) -> Tuple[Counter[str], Counter[str]]:
+    """Durations (us) and counts by name of the complete events of the
+    chrome trace at ``path`` for which ``keep(event)`` holds."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        trace = json.load(f)
+    tot: Counter[str] = collections.Counter()
+    cnt: Counter[str] = collections.Counter()
+    for ev in trace.get("traceEvents", []):
+        if ev.get("ph") != "X" or not keep(ev):
+            continue
+        name = ev.get("name", "?")
+        tot[name] += ev.get("dur", 0)
+        cnt[name] += 1
+    return tot, cnt
+
+
 def aggregate_trace(out_dir: str
                     ) -> Tuple[Counter[str], Counter[str]]:
     """Sum device-lane complete-event durations (us) and counts by name
@@ -80,22 +100,20 @@ def aggregate_trace(out_dir: str
     FileNotFoundError without a trace and NoDeviceEvents when the trace
     has no kernel, copy or fill on a device."""
     path = _newest_trace(out_dir)
-    opener = gzip.open if path.endswith(".gz") else open
-    with opener(path, "rt") as f:
-        trace = json.load(f)
-    tot: Counter[str] = collections.Counter()
-    cnt: Counter[str] = collections.Counter()
-    for ev in trace.get("traceEvents", []):
-        if ev.get("ph") != "X" or ev.get("cat") not in DEVICE_CATS:
-            continue
-        name = ev.get("name", "?")
-        tot[name] += ev.get("dur", 0)
-        cnt[name] += 1
+    tot, cnt = _sum_events(path, lambda ev: ev.get("cat") in DEVICE_CATS)
     if not cnt:
         raise NoDeviceEvents(
             f"{path} holds no device event (kernel, memcpy or memset): the "
             "program ran on no CUDA device, or the profiler saw none")
     return tot, cnt
+
+
+def span_totals(out_dir: str) -> Tuple[Counter[str], Counter[str]]:
+    """Host durations (us) and counts of the program's spans by name from
+    the newest chrome trace under ``out_dir``; empty without spans."""
+    return _sum_events(_newest_trace(out_dir), lambda ev: (
+        ev.get("cat") == "cpu_op"
+        and ev.get("name", "").startswith(SPAN_PREFIX)))
 
 
 def categories(tot: Counter[str], cnt: Counter[str]
@@ -110,7 +128,11 @@ def categories(tot: Counter[str], cnt: Counter[str]
 
 
 def report(tot: Counter[str], cnt: Counter[str], steps: int,
-           top: int = 30) -> None:
+           top: int = 30,
+           spans: Optional[Tuple[Counter[str], Counter[str]]] = None
+           ) -> None:
+    """Print the device tables; ``spans``, span_totals' (us, counts), adds
+    the spans' host time when it holds any."""
     total_us = sum(tot.values())
     print(f"device total: {total_us / steps / 1e3:.2f} ms/step "
           f"({len(tot)} distinct ops)")
@@ -127,6 +149,11 @@ def report(tot: Counter[str], cnt: Counter[str], steps: int,
         for name, (us, n) in ours.items():
             print(f"{us / steps / 1e3:9.3f} ms/step  x{int(n) // steps:<5d}"
                   f" {name}")
+    if spans and spans[1]:
+        print("\nspans (host time):")
+        for name, us in spans[0].most_common():
+            print(f"{us / steps / 1e3:9.3f} ms/step  "
+                  f"x{spans[1][name] // steps:<5d} {name}")
 
 
 def device_rows(prof, calls: int) -> List[Tuple[str, float, float]]:
