@@ -8,7 +8,9 @@ Run from the repository root with no arguments:
 It builds the CUDA kernels from yunet_tpu_torch/csrc/ (nvcc, sm_90a, all
 at once), compares each kernel with its plain PyTorch version on the card
 at the shapes its path gives it, drives the serving path (yunet_n at full
-width, trained r04 EMA weights from tests/fixtures/r04_ema.npz) and the
+width, trained r04 EMA weights from tests/fixtures/r04_ema.npz), a fused
+Detector's batch-1 detect replayed as a CUDA graph (bf16 and f32, at two
+canvases, bit for bit against the eager program, with an eviction) and the
 training path (10 steps of yunet_n at 640^2 b16, bf16, from the same
 weights, on seeded synthetic face batches) through the user entry points,
 the same training path with train.fused_kernels (every ConvDPUnit through
@@ -54,6 +56,7 @@ them, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -924,6 +927,276 @@ def phase_times(fdet):
     torch.cuda.synchronize()
 
 
+GRAPH_CALLS = 8                    # detects a canvas in phase_graph
+GRAPH_CANVASES = ((640, 640), (480, 640))
+# one canvas more than the graphs a Detector keeps, run to a capture each
+# in turn: the last capture evicts the first canvas's graph
+GRAPH_EVICT = GRAPH_CANVASES + ((640, 480), (320, 320), (512, 384))
+GRAPH_SWEEP = 48                   # solo images in _graph_sweep
+
+
+@contextlib.contextmanager
+def _eager():
+    """Detectors issue detect's program launch by launch inside the
+    block: no graph is captured or replayed, whatever a Detector keeps
+    (the rule, ``Detector._graph_key``, gives no key)."""
+    from yunet_tpu_torch.eval.detect import Detector
+    rule = Detector._graph_key
+    Detector._graph_key = lambda *_: None
+    try:
+        yield
+    finally:
+        Detector._graph_key = rule
+
+
+def _graph_run(det, imgs, top_k):
+    """det.detect(use_device_nms=True) on each image of one canvas, held
+    to the eager program: the rows a graph left in its static output
+    np.array_equal to eager detect_packed's on the same canvas, and every
+    result dict to the one those eager rows give. Returns (the number of
+    calls a graph ran, captured or replayed; each detect's wall in ms)."""
+    from yunet_tpu_torch.eval.detect import _kept_rows, _result, resize_img
+    graphed, walls = 0, []
+    for i, img in enumerate(imgs):
+        t0 = time.perf_counter()
+        got = det.detect(img, use_device_nms=True)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        canvas, scale = resize_img(img, "AUTO")
+        graph = det._graphs.get(det._graph_key(canvas, top_k))
+        rows = None if graph is None else graph.packed.cpu().numpy()
+        want = det.detect_packed(det._input([canvas]), top_k).cpu().numpy()
+        if rows is not None:
+            graphed += 1
+            if not np.array_equal(rows, want):
+                raise AssertionError(f"graph rows != eager rows, call {i} "
+                                     f"at {canvas.shape[:2]}")
+        want = _result(*_kept_rows(want, SCORE), scale)
+        for k in ("bboxes", "kps", "labels"):
+            if not np.array_equal(got[k], want[k]):
+                raise AssertionError(f"detect's {k} != the eager program's, "
+                                     f"call {i} at {canvas.shape[:2]}")
+    return graphed, walls
+
+
+def _graph_kernels(det, img, bf16, calls=20):
+    """The kernels of ``calls`` replayed detects in a torch.profiler
+    trace (chrome trace events of category kernel, as the benchmark
+    counts them), a call: every kernel, K4's (convdp_mma_kernel on the
+    bf16 route, convdp_kernel in f32) and nms.cu's mask and scan. Raises
+    unless every call replayed and ran 29 K4 and one of each NMS kernel."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    replays = det.graph_replays
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            det.detect(img, use_device_nms=True)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+    k4 = "convdp_mma_kernel" if bf16 else "convdp_kernel"
+    got = {"kernels": len(names) / calls,
+           k4: sum(k4 in n for n in names) / calls,
+           "nms_mask_kernel": sum("nms_mask_kernel" in n
+                                  for n in names) / calls,
+           "nms_scan_kernel": sum("nms_scan_kernel" in n
+                                  for n in names) / calls}
+    if det.graph_replays - replays != calls or got[k4] != 29 or \
+            got["nms_mask_kernel"] != 1 or got["nms_scan_kernel"] != 1:
+        raise AssertionError(f"{det.graph_replays - replays} replays of "
+                             f"{calls}; kernels a call {got}, want 29 {k4} "
+                             "and one NMS mask and scan")
+    return got
+
+
+def _graph_sweep(cfg, model):
+    """detect_sweep's solo path, graphed and eager: GRAPH_SWEEP images of
+    the WIDER split's law (1024 wide, 576-1536 high), each with a stale
+    size hint, so that each runs solo through detect(use_device_nms=True)
+    at its /32 canvas (mode ORIGIN), on a new fused bf16 Detector each
+    run, eager, graph, eager, eager, graph (the first warms cuDNN's
+    choices and is not kept). Holds the graphed sweep's results equal to
+    the eager one's; returns the canvases, those seen more than once, the
+    captures and replays, the sweep's wall (ms) each way, and each
+    graphed run's ``Detector._capture`` calls (ms)."""
+    import torch
+    from yunet_tpu_torch.eval.detect import Detector, canvas_shape
+    rng = np.random.RandomState(13)
+    imgs = [face_image(rng, int(h), 1024, rng.randint(3, 12))
+            for h in rng.randint(576, 1537, GRAPH_SWEEP)]
+    seen = {}
+    for img in imgs:
+        key = canvas_shape(*img.shape[:2], "ORIGIN")
+        seen[key] = seen.get(key, 0) + 1
+    entries = [((lambda im=im: im), (1, 1)) for im in imgs]
+    rep = {"images": GRAPH_SWEEP, "canvases": len(seen),
+           "canvases_seen_twice_or_more": sum(n > 1 for n in seen.values()),
+           "calls_on_those": sum(n for n in seen.values() if n > 1),
+           "wall_ms": {"graph": [], "eager": []}, "capture_ms": []}
+    want = None
+    for i, which in enumerate(("eager", "graph", "eager", "eager", "graph")):
+        det = Detector(cfg, model, device=DEV, fused=True)
+        captures = []
+
+        def timed_capture(*a, det=det, captures=captures):
+            t0 = time.perf_counter()
+            graph = Detector._capture(det, *a)
+            captures.append(round((time.perf_counter() - t0) * 1e3, 3))
+            return graph
+        det._capture = timed_capture
+        ctx = _eager() if which == "eager" else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = det.detect_sweep(entries, "ORIGIN", use_device_nms=True)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        if det.last_sweep_stats["misfit_solo"] != GRAPH_SWEEP:
+            raise AssertionError(f"sweep: {det.last_sweep_stats}, want "
+                                 f"{GRAPH_SWEEP} solo images")
+        want = want or out
+        for r, w in zip(out, want):
+            for k in ("bboxes", "kps", "labels"):
+                if not np.array_equal(r[k], w[k]):
+                    raise AssertionError(f"{which} sweep's {k} != the eager "
+                                         "sweep's")
+        if which == "graph":
+            rep["captures_replays"] = [det.graph_captures, det.graph_replays]
+            rep["capture_ms"].append(captures)
+        if i:
+            rep["wall_ms"][which].append(round(wall, 3))
+    return rep
+
+
+def phase_graph(model):
+    """A fused Detector's detect with device NMS as a replayed CUDA graph,
+    bf16 and f32: GRAPH_CALLS detects at each canvas of GRAPH_CANVASES,
+    each held bit for bit to the eager program (``_graph_run``); a graph
+    captured at each canvas's second call and replayed from its third;
+    the wrappers' launch counters at 29 K4 (bf16: all on the tensor-core
+    route) and 2 K3 for each eager call and each capture, and nothing for
+    a replay; the canvases of GRAPH_EVICT in turn, each to its capture,
+    the last evicting the first, whose next call runs eagerly and the one
+    after recaptures; a profiler trace of replayed calls, with 29 K4 and
+    nms.cu's two kernels a call; the host's wall a detect, graphed and
+    eager in turns. Then ``_graph_sweep``."""
+    import torch
+    from yunet_tpu_torch.config import yunet_n
+    from yunet_tpu_torch.eval.detect import (_GRAPHS_KEPT, Detector,
+                                             resize_img)
+    cfg = yunet_n()
+    rng = np.random.RandomState(9)
+    imgs = {hw: [face_image(rng, *hw, rng.randint(2, 9))
+                 for _ in range(GRAPH_CALLS)] for hw in GRAPH_EVICT}
+    if len(GRAPH_EVICT) != _GRAPHS_KEPT + 1:
+        raise AssertionError(f"GRAPH_EVICT holds {len(GRAPH_EVICT)} canvases,"
+                             f" a Detector keeps {_GRAPHS_KEPT} graphs")
+    report = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        det = Detector(cfg, model, device=DEV, dtype=dt, fused=True)
+        top_k = cfg.test.device_nms_pre
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        graphed, walls = 0, {}
+        for hw in GRAPH_CANVASES:
+            g, walls[hw] = _graph_run(det, imgs[hw], top_k)
+            graphed += g
+        torch.cuda.synchronize()
+        lc = launch_counts()
+        n = len(GRAPH_CANVASES) * GRAPH_CALLS
+        # each canvas's eager first call and its capture issue a detect's
+        # launches, a replay none; each call's eager reference issues them
+        issued = n + 2 * len(GRAPH_CANVASES)
+        want = {"fused_conv_dp": 29 * issued, "greedy_nms": 2 * issued,
+                "fused_conv_dp_mma": 29 * issued if dt == torch.bfloat16
+                else 0}
+        got = {k: lc[k] for k in want}
+        if got != want:
+            raise AssertionError(f"graph {name}: launches {got}, want {want}")
+        reps = len(GRAPH_CANVASES) * (GRAPH_CALLS - 2)
+        if (det.graph_captures, det.graph_replays) != (
+                len(GRAPH_CANVASES), reps) or graphed != reps + len(
+                GRAPH_CANVASES):
+            raise AssertionError(
+                f"graph {name}: {det.graph_captures} captures, "
+                f"{det.graph_replays} replays, {graphed} graphed calls; "
+                f"want {len(GRAPH_CANVASES)}, {reps}, "
+                f"{reps + len(GRAPH_CANVASES)}")
+        calls_ms = {f"{h}x{w}": {"first": round(v[0], 3),
+                                 "capture": round(v[1], 3),
+                                 "replay_median": round(statistics.median(
+                                     v[2:]), 3)}
+                    for (h, w), v in walls.items()}
+        log(f"[graph] {name}: {n} detects at {list(GRAPH_CANVASES)} == the "
+            f"eager program bit for bit; {det.graph_captures} captures, "
+            f"{det.graph_replays} replays; launches {got} (eager calls and "
+            f"captures only); detect wall ms {calls_ms}")
+
+        # one canvas past the graphs kept: the first is evicted, then runs
+        # eagerly, then captures again (evicting the second)
+        ev = Detector(cfg, model, device=DEV, dtype=dt, fused=True)
+        for hw in GRAPH_EVICT:
+            _graph_run(ev, imgs[hw][:2], top_k)
+        first = ev._graph_key(resize_img(imgs[GRAPH_EVICT[0]][0],
+                                         "AUTO")[0], top_k)
+        evicted = first not in ev._graphs
+        _graph_run(ev, imgs[GRAPH_EVICT[0]][2:5], top_k)
+        want = (len(GRAPH_EVICT) + 1, 1, _GRAPHS_KEPT)
+        got_ev = (ev.graph_captures, ev.graph_replays, len(ev._graphs))
+        if not evicted or got_ev != want:
+            raise AssertionError(
+                f"graph {name} eviction: first canvas evicted {evicted}; "
+                f"captures, replays, kept {got_ev}, want {want}")
+        log(f"[graph] {name}: {len(GRAPH_EVICT)} canvases to a capture "
+            f"each, {_GRAPHS_KEPT} kept: the first evicted, then eager, "
+            "recaptured and replayed; bits equal")
+        del ev
+
+        img = imgs[GRAPH_CANVASES[0]][0]
+        kernels = _graph_kernels(det, img, dt == torch.bfloat16)
+        walls = {}
+        for which in ("graph", "eager", "eager", "graph"):
+            ctx = _eager() if which == "eager" else contextlib.nullcontext()
+            with ctx:
+                ts = []
+                for i in range(200):
+                    t0 = time.perf_counter()
+                    det.detect(imgs[GRAPH_CANVASES[0]][i % GRAPH_CALLS],
+                               use_device_nms=True)
+                    ts.append(time.perf_counter() - t0)
+            walls.setdefault(which, []).append(
+                round(statistics.median(ts) * 1e3, 4))
+        report[name] = {"kernels_a_call": kernels, "wall_ms": walls,
+                        "calls_ms": calls_ms}
+        log(f"[graph] {name}: a replayed call in the profiler's trace "
+            f"{kernels}; detect wall ms, median of 200 (graph, eager, "
+            f"eager, graph in turns): {walls}")
+    report["sweep"] = _graph_sweep(cfg, model)
+    log(f"[graph] detect_sweep, every image solo: {report['sweep']}")
+    return report
+
+
+def graph_only():
+    """phase_graph alone: python3 -c "import chip_smoke as s;
+    s.graph_only()" from the repository root. Builds convdp.cu and
+    nms.cu."""
+    import torch
+    from yunet_tpu_torch.ops import convdp, nms
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    smi = nvidia_smi_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} | {smi}")
+    phase_build({"convdp.cu": convdp.LIB, "nms.cu": nms.LIB})
+    *_, model, _ = load_model()
+    log(f"[graph] {smi}: " + json.dumps(phase_graph(model)))
+
+
 # -- the WIDER evaluation path -------------------------------------------------
 
 WIDER_DIR = os.path.join(ROOT, "work_dirs", "chip_wider")
@@ -1243,10 +1516,12 @@ def phase_wider():
                                  f"{29 * solo}, all on the bf16 route")
         for k in fused_launches:
             fused_launches[k] += lc[k]
+        # eagerly: a graph keeps the kernels of its capture
         kernel = fused_mod.fused_conv_dp
         fused_mod.fused_conv_dp = fused_conv_dp_plain
         try:
-            plain = run(fdet) or []
+            with _eager():
+                plain = run(fdet) or []
         finally:
             fused_mod.fused_conv_dp = kernel
         for g, w in zip(got, plain):
@@ -3199,12 +3474,20 @@ def phase_export(sd):
     if not all(torch.allclose(a[k], b[k], rtol=1e-4, atol=1e-4) for k in a):
         raise AssertionError(f"imported f32 trunk: kernel against plain, max "
                              f"abs err {f32_err} (rtol/atol 1e-4)")
+    # eagerly: a graph keeps the kernels of its capture
+    graph_calls = (dets[torch.float32].graph_captures,
+                   dets[torch.float32].graph_replays)
     fused_mod.fused_conv_dp = fused_conv_dp_plain
     try:
-        plain = [dets[torch.float32].detect(img, use_device_nms=True)
-                 for img in imgs]
+        with _eager():
+            plain = [dets[torch.float32].detect(img, use_device_nms=True)
+                     for img in imgs]
     finally:
         fused_mod.fused_conv_dp = kernel
+    if (dets[torch.float32].graph_captures,
+            dets[torch.float32].graph_replays) != graph_calls:
+        raise AssertionError("the plain units' detects captured or "
+                             "replayed a graph")
     for g, w in zip(results[torch.float32], plain):
         _match(g, w, atol=1e-2, rtol=1e-4, score_atol=1e-4)
     rep["k4_bf16_excess"], rep["k4_f32_trunk_max_abs_err"] = worst, f32_err
@@ -4129,6 +4412,7 @@ def main() -> int:
     conv_err, conv_t = phase(phase_convdp, folded, cfg)
     simota_err, simota_t = phase(phase_simota, model, cfg)
     _, fdet, serve_launches = phase(phase_slice)
+    log(f"[graph] {smi}: " + json.dumps(phase(phase_graph, model)))
     train_launches, batches = phase(phase_train, sd)
     bwd_err, bwd_t = phase(phase_convdp_bwd, folded, cfg)
     fused_launches, _ = phase(phase_train_fused, sd, batches)

@@ -8,6 +8,10 @@ rescale — counterpart of ``yunet_tpu/eval/detect.py``.
   * NMS either exact on the host (``native.nms``, uncapped — the AP-parity
     path and the default) or on the device (``ops/nms.py``: a top-k cap
     and one packed readback);
+  * on a CUDA device, a fused Detector's ``detect`` with device NMS
+    replays its batch-1 program as one CUDA graph per canvas (``_Graph``)
+    from the second call of a canvas on, in place of issuing its ~85
+    launches one by one;
   * ``Detector.detect_sweep``: the WIDER sweep over many images of varying
     sizes, grouped by canvas, in ladder-sized batches;
     ``Detector.detect_tta``: multi-scale and flip test-time augmentation;
@@ -17,6 +21,7 @@ rescale — counterpart of ``yunet_tpu/eval/detect.py``.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import logging
@@ -35,6 +40,18 @@ from ..ops.priors import grid_priors
 from ..ops.resize import resize
 from ..utils.profiling import laps, span
 from .. import native
+
+# the device type whose Detectors replay detect's program as CUDA graphs
+_GRAPH_DEVICE = "cuda"
+# the captured programs a Detector keeps, the least recently used evicted
+# first: a sweep's solo images of many sizes cannot grow memory unbounded
+_GRAPHS_KEPT = 4
+
+
+# one captured batch-1 device program (``Detector.detect_packed``): ``run``
+# replays it, reading its static input ``x`` (1, H, W, 3), which each
+# call's upload writes, into its static ``packed`` output
+_Graph = collections.namedtuple("_Graph", ("run", "x", "packed"))
 
 
 def canvas_shape(h: int, w: int, mode: Union[str, Tuple[int, int]],
@@ -135,6 +152,24 @@ class Detector:
     shard runs on a replica of the model, or of the folded tree, on its
     device, made at the first sharded call from the weights of that
     moment and kept; setting ``mesh`` again drops the replicas.
+
+    CUDA graphs: a fused Detector on a CUDA device runs
+    ``detect(use_device_nms=True)``'s device program (``detect_packed``)
+    as a CUDA graph, one for each canvas shape, input dtype, trunk dtype
+    and top-k. A key's first call runs eagerly (it loads the kernels and
+    fills the lazy caches), its second captures the graph and runs it,
+    later calls replay it; the same kernels in the same order, so the
+    same bits. ``graph_captures`` and ``graph_replays`` count the calls
+    that captured a graph and those that replayed one an earlier call
+    captured. Every other path (CPU, unfused, host NMS, ``detect_batch``)
+    issues its launches eagerly. A capture freezes the kernels that the
+    module functions in use at that moment launch (say
+    ``models.fused.fused_conv_dp``): a function put in their place later
+    does not reach a kept graph, so a call that must run another function
+    has to run eagerly (``_graph_key`` returning None) or on a new
+    Detector. The kernel wrappers' launch counters count the launches
+    their Python issues, eagerly or into a capture; a replay runs no
+    wrapper and adds nothing to them.
     """
 
     def __init__(self, cfg: Config, model_or_state=None, *, device,
@@ -163,6 +198,12 @@ class Detector:
         # detect_batch(use_device_nms=True) call
         self.last_devnms_saturated = 0
         self.mesh = None
+        # detect's graph keys run once, eagerly, and the captured graphs
+        self._primed: "collections.OrderedDict[tuple, None]" = \
+            collections.OrderedDict()
+        self._graphs: "collections.OrderedDict[tuple, _Graph]" = \
+            collections.OrderedDict()
+        self.graph_captures = self.graph_replays = 0
 
     @property
     def mesh(self) -> Optional[Tuple[torch.device, ...]]:
@@ -254,14 +295,52 @@ class Detector:
             return torch.cat([dets, keep[..., None].to(dets.dtype), kps_sel,
                               meta], dim=-1)
 
-    def _input(self, imgs) -> torch.Tensor:
+    def _input(self, imgs, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         """Stacked canvases -> device tensor: uint8 when the trunk is bf16
-        (4x less host->device traffic, cast on the device), f32 else."""
+        (4x less host->device traffic, cast on the device), f32 else.
+        out: a graph's static input, which the copy writes instead."""
         with span("yunet.upload"):
             x = np.stack(imgs)
             if not (self.dtype == torch.bfloat16 and x.dtype == np.uint8):
                 x = x.astype(np.float32)
-            return torch.from_numpy(x).to(self.device)
+            if out is None:
+                return torch.from_numpy(x).to(self.device)
+            return out.copy_(torch.from_numpy(x))
+
+    # -- CUDA graphs of detect's device program ------------------------------
+    def _graph_key(self, det_img: np.ndarray, top_k: int) -> Optional[tuple]:
+        """The key of detect's device-NMS program for this canvas, or None
+        where that program is not graphed (not on a CUDA device, or no
+        folded tree: units outside the kernel)."""
+        if self.device.type != _GRAPH_DEVICE or self.folded is None:
+            return None
+        return (det_img.shape, det_img.dtype, self.dtype, top_k)
+
+    def _record(self, x: torch.Tensor, top_k: int):
+        """Capture ``detect_packed(x, top_k)`` as a CUDA graph, which runs
+        nothing -> (replay, static packed output)."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            packed = self.detect_packed(x, top_k)
+        return graph.replay, packed
+
+    def _capture(self, key: tuple, x: torch.Tensor, top_k: int) -> _Graph:
+        """Capture key's program on static input x and keep it, the least
+        recently used graph evicted past ``_GRAPHS_KEPT``."""
+        replay, packed = self._record(x, top_k)
+        graph = self._graphs[key] = _Graph(replay, x, packed)
+        del self._primed[key]
+        if len(self._graphs) > _GRAPHS_KEPT:
+            self._graphs.popitem(last=False)
+        self.graph_captures += 1
+        return graph
+
+    def _prime(self, key: tuple) -> None:
+        """Note key's first, eager call: its next call captures."""
+        self._primed[key] = None
+        if len(self._primed) > _GRAPHS_KEPT:
+            self._primed.popitem(last=False)
 
     def _check_thr(self, score_thr: float) -> None:
         if score_thr < self.cfg.test.score_thr:
@@ -286,7 +365,8 @@ class Detector:
         timings: pass a dict to receive the per-call latency budget in
         seconds — {preproc, put, dispatch, device_readback, post}, read
         at the ends of the stage spans: yunet.letterbox; yunet.upload;
-        yunet.trunk, yunet.decode and yunet.nms; yunet.readback;
+        yunet.trunk, yunet.decode and yunet.nms, or yunet.graph where a
+        CUDA graph replays them (the class doc); yunet.readback;
         yunet.host_nms and yunet.result.
         ``dispatch`` ends when the device program has been queued,
         ``device_readback`` when its result is on the host: the device's
@@ -300,12 +380,27 @@ class Detector:
             with span("yunet.letterbox"):
                 det_img, det_scale = resize_img(img_bgr, mode, pad_divisor)
             lap("preproc")
-            x = self._input([det_img])
-            lap("put")
             if use_device_nms:
                 self._check_thr(score_thr)
                 top_k = max_dets or self.cfg.test.device_nms_pre
-                packed = self.detect_packed(x, top_k)
+                key = self._graph_key(det_img, top_k)
+                graph = self._graphs.get(key)
+                x = self._input([det_img],
+                                None if graph is None else graph.x)
+                lap("put")
+                if graph is not None:
+                    self._graphs.move_to_end(key)
+                    self.graph_replays += 1
+                elif key in self._primed:
+                    graph = self._capture(key, x, top_k)
+                if graph is None:
+                    packed = self.detect_packed(x, top_k)
+                    if key is not None:
+                        self._prime(key)
+                else:
+                    with span("yunet.graph"):
+                        graph.run()
+                    packed = graph.packed
                 lap("dispatch")
                 with span("yunet.readback"):
                     packed = packed.cpu().numpy()        # ONE readback
@@ -313,6 +408,8 @@ class Detector:
                 with span("yunet.result"):
                     out = _result(*_kept_rows(packed, score_thr), det_scale)
             else:
+                x = self._input([det_img])
+                lap("put")
                 out = self.raw(x, conv_kernel=True)
                 lap("dispatch")
                 with span("yunet.readback"):
