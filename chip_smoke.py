@@ -936,6 +936,9 @@ GRAPH_CANVASES = ((640, 640), (480, 640))
 # in turn: the last capture evicts the first canvas's graph
 GRAPH_EVICT = GRAPH_CANVASES + ((640, 480), (320, 320), (512, 384))
 GRAPH_SWEEP = 48                   # solo images in _graph_sweep
+# a staged call's two copies, by their names in a profiler trace
+STAGE_COPIES = ("Memcpy HtoD (Pinned -> Device)",
+                "Memcpy DtoH (Device -> Pinned)")
 
 
 @contextlib.contextmanager
@@ -954,10 +957,12 @@ def _eager():
 
 def _graph_run(det, imgs, top_k):
     """det.detect(use_device_nms=True) on each image of one canvas, held
-    to the eager program: the rows a graph left in its static output
-    np.array_equal to eager detect_packed's on the same canvas, and every
-    result dict to the one those eager rows give. Returns (the number of
-    calls a graph ran, captured or replayed; each detect's wall in ms)."""
+    to the eager program: where a graph ran, the canvas its stage took
+    np.array_equal to the call's canvas, and the rows it left in its
+    static output and read back into its stage's output to eager
+    detect_packed's on the same canvas; every result dict to the one
+    those eager rows give. Returns (the number of calls a graph ran,
+    captured or replayed; each detect's wall in ms)."""
     from yunet_tpu_torch.eval.detect import _kept_rows, _result, resize_img
     graphed, walls = 0, []
     for i, img in enumerate(imgs):
@@ -966,13 +971,19 @@ def _graph_run(det, imgs, top_k):
         walls.append((time.perf_counter() - t0) * 1e3)
         canvas, scale = resize_img(img, "AUTO")
         graph = det._graphs.get(det._graph_key(canvas, top_k))
-        rows = None if graph is None else graph.packed.cpu().numpy()
+        if graph is not None:
+            staged = (graph.stage.x.numpy()[0], graph.stage.packed.numpy(),
+                      graph.packed.cpu().numpy())
         want = det.detect_packed(det._input([canvas]), top_k).cpu().numpy()
-        if rows is not None:
+        if graph is not None:
             graphed += 1
-            if not np.array_equal(rows, want):
-                raise AssertionError(f"graph rows != eager rows, call {i} "
-                                     f"at {canvas.shape[:2]}")
+            if not np.array_equal(staged[0], canvas):
+                raise AssertionError(f"the stage's canvas != the call's, "
+                                     f"call {i} at {canvas.shape[:2]}")
+            for rows in staged[1:]:
+                if not np.array_equal(rows, want):
+                    raise AssertionError(f"graph rows != eager rows, call "
+                                         f"{i} at {canvas.shape[:2]}")
         want = _result(*_kept_rows(want, SCORE), scale)
         for k in ("bboxes", "kps", "labels"):
             if not np.array_equal(got[k], want[k]):
@@ -981,12 +992,41 @@ def _graph_run(det, imgs, top_k):
     return graphed, walls
 
 
+def _unstaged_replay(det, hw, top_k):
+    """A graphed detect of a frame of its (h, w) canvas fed as it was
+    without a pinned stage, on det's program: a new zeroed canvas that
+    the frame is copied into, ``np.stack``, a pageable copy into the
+    static input of a graph of ``detect_packed`` alone, the replay, a
+    ``.cpu().numpy()`` of its static output. Returns the call, frame ->
+    result dict."""
+    import torch
+    from yunet_tpu_torch.eval.detect import _kept_rows, _result
+    x = det._input([np.zeros((*hw, 3), np.uint8)])
+    det.detect_packed(x, top_k)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        packed = det.detect_packed(x, top_k)
+
+    def call(img):
+        canvas = np.zeros((*hw, 3), dtype=img.dtype)
+        canvas[:img.shape[0], :img.shape[1]] = img
+        xs = np.stack([canvas])
+        if not (det.dtype == torch.bfloat16 and xs.dtype == np.uint8):
+            xs = xs.astype(np.float32)
+        x.copy_(torch.from_numpy(xs))
+        graph.replay()
+        return _result(*_kept_rows(packed.cpu().numpy(), SCORE), 1.0)
+    return call
+
+
 def _graph_kernels(det, img, bf16, calls=20):
     """The kernels of ``calls`` replayed detects in a torch.profiler
     trace (chrome trace events of category kernel, as the benchmark
     counts them), a call: every kernel, K4's (convdp_mma_kernel on the
-    bf16 route, convdp_kernel in f32) and nms.cu's mask and scan. Raises
-    unless every call replayed and ran 29 K4 and one of each NMS kernel."""
+    bf16 route, convdp_kernel in f32) and nms.cu's mask and scan; and the
+    copies (category gpu_memcpy), a call: all, and the stage's two, from
+    pinned memory and back. Raises unless every call replayed and ran 29
+    K4, one of each NMS kernel and one copy each way through the stage."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1000,20 +1040,28 @@ def _graph_kernels(det, img, bf16, calls=20):
         path = os.path.join(d, "graph.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
-                     if e.get("cat") == "kernel"]
+            events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    copies = [e.get("name", "") for e in events
+              if e.get("cat") == "gpu_memcpy"]
     k4 = "convdp_mma_kernel" if bf16 else "convdp_kernel"
     got = {"kernels": len(names) / calls,
            k4: sum(k4 in n for n in names) / calls,
            "nms_mask_kernel": sum("nms_mask_kernel" in n
                                   for n in names) / calls,
            "nms_scan_kernel": sum("nms_scan_kernel" in n
-                                  for n in names) / calls}
+                                  for n in names) / calls,
+           "copies": len(copies) / calls,
+           "copy_names": sorted(set(copies))}
+    for name in STAGE_COPIES:
+        got[name] = copies.count(name) / calls
     if det.graph_replays - replays != calls or got[k4] != 29 or \
-            got["nms_mask_kernel"] != 1 or got["nms_scan_kernel"] != 1:
+            got["nms_mask_kernel"] != 1 or got["nms_scan_kernel"] != 1 or \
+            any(got[name] != 1 for name in STAGE_COPIES):
         raise AssertionError(f"{det.graph_replays - replays} replays of "
-                             f"{calls}; kernels a call {got}, want 29 {k4} "
-                             "and one NMS mask and scan")
+                             f"{calls}; kernels a call {got}, want 29 {k4}, "
+                             f"one NMS mask and scan and one of each of "
+                             f"{STAGE_COPIES}")
     return got
 
 
@@ -1125,12 +1173,12 @@ def phase_graph(model):
         reps = len(GRAPH_CANVASES) * (GRAPH_CALLS - 2)
         if (det.graph_captures, det.graph_replays) != (
                 len(GRAPH_CANVASES), reps) or graphed != reps + len(
-                GRAPH_CANVASES):
+                GRAPH_CANVASES) or det.staged_calls != graphed:
             raise AssertionError(
                 f"graph {name}: {det.graph_captures} captures, "
-                f"{det.graph_replays} replays, {graphed} graphed calls; "
-                f"want {len(GRAPH_CANVASES)}, {reps}, "
-                f"{reps + len(GRAPH_CANVASES)}")
+                f"{det.graph_replays} replays, {graphed} graphed calls, "
+                f"{det.staged_calls} staged; want {len(GRAPH_CANVASES)}, "
+                f"{reps}, {reps + len(GRAPH_CANVASES)} twice")
         calls_ms = {f"{h}x{w}": {"first": round(v[0], 3),
                                  "capture": round(v[1], 3),
                                  "replay_median": round(statistics.median(
@@ -1138,8 +1186,9 @@ def phase_graph(model):
                     for (h, w), v in walls.items()}
         log(f"[graph] {name}: {n} detects at {list(GRAPH_CANVASES)} == the "
             f"eager program bit for bit; {det.graph_captures} captures, "
-            f"{det.graph_replays} replays; launches {got} (eager calls and "
-            f"captures only); detect wall ms {calls_ms}")
+            f"{det.graph_replays} replays, {det.staged_calls} staged; "
+            f"launches {got} (eager calls and captures only); detect wall "
+            f"ms {calls_ms}")
 
         # one canvas past the graphs kept: the first is evicted, then runs
         # eagerly, then captures again (evicting the second)
@@ -1161,25 +1210,42 @@ def phase_graph(model):
             "recaptured and replayed; bits equal")
         del ev
 
-        img = imgs[GRAPH_CANVASES[0]][0]
-        kernels = _graph_kernels(det, img, dt == torch.bfloat16)
+        frames = imgs[GRAPH_CANVASES[0]]
+        kernels = _graph_kernels(det, frames[0], dt == torch.bfloat16)
+        # the benchmark's call: a frame of the canvas's size, the canvas
+        # given as a fixed "W,H" mode
+        mode = GRAPH_CANVASES[0][::-1]
+        unstaged = _unstaged_replay(det, frames[0].shape[:2], top_k)
+        for img in frames:
+            got = det.detect(img, mode, use_device_nms=True)
+            want = unstaged(img)
+            for k in ("bboxes", "kps", "labels"):
+                if not np.array_equal(got[k], want[k]):
+                    raise AssertionError(f"graph {name}: a staged call's {k}"
+                                         " != the unstaged replay's")
+
+        def detect(img):
+            return det.detect(img, mode, use_device_nms=True)
+        # "eager" is detect under _eager()
+        calls = {"graph": detect, "unstaged": unstaged, "eager": detect}
         walls = {}
-        for which in ("graph", "eager", "eager", "graph"):
+        for which in ("graph", "unstaged", "eager", "eager", "unstaged",
+                      "graph"):
             ctx = _eager() if which == "eager" else contextlib.nullcontext()
             with ctx:
                 ts = []
                 for i in range(200):
                     t0 = time.perf_counter()
-                    det.detect(imgs[GRAPH_CANVASES[0]][i % GRAPH_CALLS],
-                               use_device_nms=True)
+                    calls[which](frames[i % GRAPH_CALLS])
                     ts.append(time.perf_counter() - t0)
             walls.setdefault(which, []).append(
                 round(statistics.median(ts) * 1e3, 4))
         report[name] = {"kernels_a_call": kernels, "wall_ms": walls,
                         "calls_ms": calls_ms}
         log(f"[graph] {name}: a replayed call in the profiler's trace "
-            f"{kernels}; detect wall ms, median of 200 (graph, eager, "
-            f"eager, graph in turns): {walls}")
+            f"{kernels}; detect wall ms at {mode}, median of 200 (graph "
+            f"through the stage, the unstaged replay, eager, eager, the "
+            f"unstaged replay, graph in turns): {walls}")
     report["sweep"] = _graph_sweep(cfg, model)
     log(f"[graph] detect_sweep, every image solo: {report['sweep']}")
     return report

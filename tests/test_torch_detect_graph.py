@@ -5,15 +5,20 @@ stub here (``_record``), since a CPU has no CUDA graph, and the rule
 call runs eagerly, its
 second captures and runs the graph, later calls replay it; the canvas,
 ``max_dets`` and the input dtype are parts of the key; the least recently
-used graph goes past ``_GRAPHS_KEPT``; a CPU, unfused or host-NMS detect
-and ``detect_batch`` never capture; the wrappers' counters count the
-launches a capture issues and nothing for a replay; a failed capture
-raises and keeps no graph; the ``timings`` keys and the stage spans
-around ``yunet.graph``."""
+used graph goes past ``_GRAPHS_KEPT``, its stage with it; a CPU, unfused
+or host-NMS detect and ``detect_batch`` never capture; the wrappers'
+counters count the launches a capture issues and nothing for a replay; a
+failed capture raises and keeps no graph; the ``timings`` keys and the
+stage spans around ``yunet.graph``; a graph's call goes through its stage
+(``_Stage``: the canvas in, the packed rows out), bit-equal to the eager
+program, with nothing of one call left in the stage or the result of
+another, and ``staged_calls`` counts those calls alone."""
 
+import gc
 import gzip
 import json
 import os
+import weakref
 
 import numpy as np
 import pytest
@@ -53,38 +58,44 @@ def model():
     return m.eval()
 
 
-def _det(model, kind="fused"):
+def _det(model, kind="fused", dtype=torch.float32):
     cfg = yunet_n()
     if kind == "folded":
         return Detector(cfg, folded=fold_inference_params(model, cfg.model),
-                        device="cpu", dtype=torch.float32)
-    return Detector(cfg, model, device="cpu", dtype=torch.float32,
+                        device="cpu", dtype=dtype)
+    return Detector(cfg, model, device="cpu", dtype=dtype,
                     fused=kind == "fused")
 
 
 class Stub:
     """``Detector._record`` on the CPU: counts the launches the wrappers
     count while they queue the program into a capture (the CPU's plain
-    versions count none), runs it once for the static output, and returns
-    a replay that runs it again on the static input, counting nothing, as
-    no wrapper runs (``frozen``: a replay that does nothing)."""
+    versions count none), runs it once, from the stage's input to the
+    stage's output, and returns a replay that runs it again, the copy in
+    from the stage, the program on the static input and the copy out to
+    the stage, counting nothing, as no wrapper runs (``frozen``: a replay
+    that does nothing)."""
 
     def __init__(self, frozen=False):
         self.records = 0
         self.frozen = frozen
 
-    def __call__(self, det, x, top_k):
+    def __call__(self, det, stage, top_k):
         self.records += 1
         fused_conv_dp.launches += K4
         fused_conv_dp.launches_mma += K4
         greedy_nms_keep.launches += K3
+        x = stage.x.clone()
         packed = det.detect_packed(x, top_k)
+        stage.packed.copy_(packed)
 
         def replay():
             if not self.frozen:
+                x.copy_(stage.x)
                 with torch.inference_mode():
                     packed.copy_(det.detect_packed(x, top_k))
-        return replay, packed
+                stage.packed.copy_(packed)
+        return replay, x, packed
 
 
 @pytest.fixture
@@ -115,14 +126,14 @@ def stub(monkeypatch):
     s = Stub()
     _on_cuda(monkeypatch)
     monkeypatch.setattr(Detector, "_record",
-                        lambda det, x, top_k: s(det, x, top_k))
+                        lambda det, stage, top_k: s(det, stage, top_k))
     return s
 
 
-def _eager(model, img, **kw):
+def _eager(model, img, dtype=torch.float32, **kw):
     """The result of the eager program: a new Detector's first call of a
     key."""
-    return _det(model).detect(img, use_device_nms=True, **kw)
+    return _det(model, dtype=dtype).detect(img, use_device_nms=True, **kw)
 
 
 def _equal(got, want):
@@ -144,7 +155,9 @@ def test_capture_on_second_call_replay_after(model, stub, kind):
     assert seen == [(0, 0, 0), (1, 1, 0), (1, 1, 1), (1, 1, 2), (1, 1, 3)]
     assert len(det._graphs) == 1 and not det._primed
     (graph,) = det._graphs.values()
-    assert graph.x.shape == (1, 64, 96, 3)
+    assert graph.x.shape == graph.stage.x.shape == (1, 64, 96, 3)
+    assert graph.stage.packed.shape == graph.packed.shape
+    assert det.staged_calls == 4
 
 
 def test_key_holds_canvas_max_dets_and_input_dtype(model, stub):
@@ -219,7 +232,8 @@ def test_no_graph_off_the_path(model, monkeypatch, case):
             det.detect_batch([img], "AUTO", use_device_nms=True)
         else:
             det.detect(img, use_device_nms=case != "host_nms")
-    assert (det.graph_captures, det.graph_replays) == (0, 0)
+    assert (det.graph_captures, det.graph_replays, det.staged_calls) == \
+        (0, 0, 0)
     assert not det._graphs and not det._primed
 
 
@@ -241,8 +255,8 @@ def test_capture_counts_its_launches_and_a_replay_none(model, stub,
 def test_failed_capture_raises_and_keeps_no_graph(model, monkeypatch):
     records = []
 
-    def fail(det, x, top_k):
-        records.append(x.shape)
+    def fail(det, stage, top_k):
+        records.append(stage.x.shape)
         raise RuntimeError("capture refused")
     _on_cuda(monkeypatch)
     monkeypatch.setattr(Detector, "_record", fail)
@@ -253,7 +267,7 @@ def test_failed_capture_raises_and_keeps_no_graph(model, monkeypatch):
         with pytest.raises(RuntimeError, match="capture refused"):
             det.detect(img, use_device_nms=True)   # call tries again
         assert len(records) == n
-    assert det.graph_captures == 0 and not det._graphs
+    assert det.graph_captures == det.staged_calls == 0 and not det._graphs
 
 
 def test_timings_keys_unchanged_on_the_graph_path(model, stub):
@@ -286,7 +300,7 @@ def test_replay_opens_the_graph_span_and_no_program_span(model, monkeypatch,
     s = Stub(frozen=True)
     _on_cuda(monkeypatch)
     monkeypatch.setattr(Detector, "_record",
-                        lambda det, x, top_k: s(det, x, top_k))
+                        lambda det, stage, top_k: s(det, stage, top_k))
     det = _det(model)
     img = _img(64, 96, 10)
     for _ in range(2):
@@ -310,3 +324,133 @@ def test_no_key_runs_eagerly_past_a_kept_graph(model, stub, monkeypatch):
         _equal(det.detect(img, use_device_nms=True), _eager(model, img))
     assert (stub.records, det.graph_captures, det.graph_replays) == (1, 1, 1)
     assert len(det._graphs) == 1 and not det._primed
+
+
+@pytest.mark.parametrize("hw", [(64, 96), (96, 64)])
+@pytest.mark.parametrize("trunk,frame", [
+    (torch.bfloat16, np.uint8),        # a uint8 stage, cast on the device
+    (torch.float32, np.uint8),         # an f32 stage: cast into it
+    (torch.float32, np.float32)])
+def test_staged_replay_equals_the_eager_program(model, stub, hw, trunk,
+                                                frame):
+    """Every graph's call (the capture and three replays), each on its
+    own read-only frame, gives the eager program's result bit for bit;
+    the stage holds the call's canvas, cast as ``_input`` casts it, and
+    its output the eager program's rows."""
+    det = _det(model, dtype=trunk)
+    imgs = [_img(*hw, s, frame) for s in range(20, 25)]
+    for img in imgs:
+        img.setflags(write=False)
+    stage_dtype = torch.uint8 if trunk == torch.bfloat16 else torch.float32
+    for i, img in enumerate(imgs):
+        got = det.detect(img, use_device_nms=True)
+        _equal(got, _eager(model, img, dtype=trunk))
+        if i:
+            (graph,) = det._graphs.values()
+            assert graph.stage.x.dtype == stage_dtype
+            np.testing.assert_array_equal(graph.stage.x.numpy()[0],
+                                          img.astype(np.float32))
+            want = _det(model, dtype=trunk).detect_packed(
+                torch.from_numpy(img[None].astype(
+                    graph.stage.x.numpy().dtype)), det.cfg.test.device_nms_pre)
+            np.testing.assert_array_equal(graph.stage.packed.numpy(),
+                                          want.numpy())
+    assert (det.graph_captures, det.graph_replays, det.staged_calls) == \
+        (1, 3, 4)
+
+
+def test_smaller_frame_after_a_full_canvas_is_staged_with_its_pad_zeroed(
+        model, stub):
+    """A frame of the canvas's size is its own canvas; a smaller frame
+    after it is letterboxed, and the stage, poisoned with 255, takes the
+    letterbox whole, its pad zero."""
+    det = _det(model)
+    mode = (96, 64)                         # the canvas (64, 96)
+    full = _img(64, 96, 30)
+    for _ in range(3):                      # eager, capture, replay
+        _equal(det.detect(full, mode, use_device_nms=True),
+               _eager(model, full, mode=mode))
+    (graph,) = det._graphs.values()
+    graph.stage.x.fill_(255)
+    small = _img(40, 96, 31)
+    got = det.detect(small, mode, use_device_nms=True)
+    assert det.graph_replays == 2
+    canvas, scale = detect_mod.resize_img(small, mode)
+    assert canvas.shape == (64, 96, 3) and scale == 1.0
+    staged = graph.stage.x.numpy()[0]
+    np.testing.assert_array_equal(staged, canvas.astype(np.float32))
+    assert not staged[40:].any()
+    _equal(got, _eager(model, small, mode=mode))
+
+
+def test_a_result_outlives_the_next_call(model, stub):
+    """Call n's result holds no view of the stage: call n+1 on another
+    frame leaves it as it was."""
+    det = _det(model)
+    imgs = [_img(64, 96, s) for s in (40, 41, 42, 43)]
+    for img in imgs[:2]:                    # eager, capture
+        det.detect(img, use_device_nms=True)
+    (graph,) = det._graphs.values()
+    got = det.detect(imgs[2], use_device_nms=True)
+    kept = {k: v.copy() for k, v in got.items()}
+    det.detect(imgs[3], use_device_nms=True)
+    assert det.graph_replays == 2
+    for k, v in got.items():
+        assert not np.shares_memory(v, graph.stage.packed.numpy())
+        np.testing.assert_array_equal(v, kept[k])
+    _equal(got, _eager(model, imgs[2]))
+
+
+def test_an_evicted_graph_drops_its_stage(model, stub):
+    det = _det(model)
+    shapes = [(32 * (i + 1), 64) for i in range(detect_mod._GRAPHS_KEPT + 1)]
+    for _ in range(2):
+        det.detect(_img(*shapes[0], 50), use_device_nms=True)
+    (graph,) = det._graphs.values()
+    held = [weakref.ref(t) for t in graph.stage]
+    del graph
+    for hw in shapes[1:]:                   # the last evicts shapes[0]
+        for _ in range(2):
+            det.detect(_img(*hw, 51), use_device_nms=True)
+    gc.collect()
+    assert [k[0][:2] for k in det._graphs] == shapes[1:]
+    assert all(ref() is None for ref in held)
+
+
+def test_staged_calls_count_the_graphs_calls_alone(model, stub, monkeypatch):
+    """A capture and a replay go through the stage; the key's eager first
+    call, a host-NMS detect, detect_batch and a call with no key do not."""
+    det = _det(model)
+    img = _img(64, 96, 60)
+    seen = []
+    for _ in range(3):                      # eager, capture, replay
+        det.detect(img, use_device_nms=True)
+        seen.append(det.staged_calls)
+    det.detect(img)
+    det.detect_batch([img, img], "AUTO", use_device_nms=True)
+    det.detect_batch([img], "AUTO")
+    seen.append(det.staged_calls)
+    monkeypatch.setattr(Detector, "_graph_key", lambda *_: None)
+    det.detect(img, use_device_nms=True)
+    seen.append(det.staged_calls)
+    assert seen == [0, 1, 2, 2, 2]
+    assert (det.graph_captures, det.graph_replays) == (1, 1)
+
+
+@pytest.mark.parametrize("frame", ["flipped", "strided", "float64"])
+def test_a_view_or_a_float64_frame_is_staged(model, stub, frame):
+    """A view with a negative stride, a view that is not contiguous and a
+    float64 frame (cast to the f32 stage in the copy) reach the stage as
+    the eager program reads them."""
+    det = _det(model)
+    base = [_img(64, 192, s) for s in range(70, 74)]
+    imgs = {"flipped": [b[:, ::-1][:, :96] for b in base],
+            "strided": [b[:, ::2] for b in base],
+            "float64": [b[:, :96].astype(np.float64) for b in base]}[frame]
+    for img in imgs:
+        assert img.shape == (64, 96, 3)
+        _equal(det.detect(img, use_device_nms=True), _eager(model, img))
+    (graph,) = det._graphs.values()
+    np.testing.assert_array_equal(graph.stage.x.numpy()[0],
+                                  imgs[-1].astype(np.float32))
+    assert det.staged_calls == 3

@@ -108,6 +108,27 @@ def test_resize_img_matches_jax(mode, hw):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("mode,hw", [((640, 640), (640, 640)),
+                                     ("640,480", (480, 640)),
+                                     ("640,480", (640, 480))])
+def test_resize_img_frame_of_the_canvas_size(mode, hw):
+    """A frame of its canvas's size (square, landscape, portrait) gives the
+    bits and det_scale of a letterbox onto a new zeroed canvas, and JAX's;
+    the caller's frame, read-only here, is never written."""
+    img = _img((*hw, 3), np.uint8, hw[0] + 3 * hw[1])
+    was = img.copy()
+    img.setflags(write=False)
+    got, scale = resize_img(img, mode)
+    letterbox = np.zeros_like(img)
+    letterbox[:hw[0], :hw[1]] = img
+    assert scale == 1.0 and got.dtype == img.dtype
+    np.testing.assert_array_equal(got, letterbox)
+    want, want_scale = jax_resize_img(img, mode)
+    assert want_scale == scale
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(img, was)
+
+
 def test_resize_img_f32_and_read_only_input():
     """A float image letterboxes within F32_ATOL of JAX's; a read-only
     (memory-mapped) image resizes without a copy warning."""

@@ -51,10 +51,15 @@ _GRAPH_DEVICE = "cuda"
 _GRAPHS_KEPT = 4
 
 
-# one captured batch-1 device program (``Detector.detect_packed``): ``run``
-# replays it, reading its static input ``x`` (1, H, W, 3), which each
-# call's upload writes, into its static ``packed`` output
-_Graph = collections.namedtuple("_Graph", ("run", "x", "packed"))
+# one captured batch-1 device program (``Detector.detect_packed``) and its
+# stage: ``run`` replays it, which copies ``stage.x`` into its static input
+# ``x`` (1, H, W, 3), runs the program into its static ``packed`` output
+# and copies that into ``stage.packed``
+_Graph = collections.namedtuple("_Graph", ("run", "x", "packed", "stage"))
+# a graph's host side: ``x`` and ``packed``, tensors of the static input's
+# and output's shapes and dtypes, page-locked on a CUDA Detector; each
+# call's upload writes ``x``, its readback reads ``packed``
+_Stage = collections.namedtuple("_Stage", ("x", "packed"))
 
 
 def canvas_shape(h: int, w: int, mode: Union[str, Tuple[int, int]],
@@ -77,7 +82,9 @@ def canvas_shape(h: int, w: int, mode: Union[str, Tuple[int, int]],
 def resize_img(img: np.ndarray, mode: Union[str, Tuple[int, int]],
                divisor: int = 32) -> Tuple[np.ndarray, float]:
     """Reference tools/detect_image.py:99-132 preprocessing modes. Returns
-    (canvas image, det_scale)."""
+    (canvas image, det_scale). An image that is already its canvas (its
+    mode's shape, or a multiple of divisor in ORIGIN/AUTO) is returned
+    itself, not a copy: callers read a canvas and never write it."""
     if mode in ("ORIGIN", "AUTO"):
         h, w = canvas_shape(img.shape[0], img.shape[1], mode, divisor)
         if (h, w) != img.shape[:2]:
@@ -97,6 +104,8 @@ def resize_img(img: np.ndarray, mode: Union[str, Tuple[int, int]],
         new_h = int(new_w * im_ratio)
     det_scale = new_h / img.shape[0]
     if (new_h, new_w) == img.shape[:2]:
+        if img.shape == (input_size[1], input_size[0], 3):
+            return img, det_scale       # the frame is its own canvas
         resized = img       # cv2.resize to the same size is the identity
     else:
         # np.require copies a read-only array (a memory-mapped cache entry)
@@ -169,7 +178,23 @@ class Detector:
     same bits. ``graph_captures`` and ``graph_replays`` count the calls
     that captured a graph and those that replayed one an earlier call
     captured. Every other path (CPU, unfused, host NMS, ``detect_batch``)
-    issues its launches eagerly. A capture freezes the kernels that the
+    issues its launches eagerly.
+
+    Each graph owns a stage (``_Stage``): page-locked host buffers of its
+    static input's and output's shapes, allocated at its capture and
+    dropped with it. A graph's call copies the canvas into the stage's
+    input in one host pass (an f32 trunk's cast in the same pass); the
+    graph itself copies that to the card as its first node and its
+    result back into the stage's output as its last; the call then
+    synchronizes the stream and reads the stage. So the next write into a
+    stage's input comes after the last call's synchronize, with no copy in
+    flight over it, and no result aliases a stage (``_kept_rows`` and
+    ``_result`` copy what they keep). ``staged_calls`` counts the calls
+    whose frame went through a stage: each capture and each replay. The
+    eager calls (a key's first) upload and read back as the other paths
+    do.
+
+    A capture freezes the kernels that the
     module functions in use at that moment launch (say
     ``models.fused.fused_conv_dp``): a function put in their place later
     does not reach a kept graph, so a call that must run another function
@@ -216,7 +241,7 @@ class Detector:
             collections.OrderedDict()
         self._graphs: "collections.OrderedDict[tuple, _Graph]" = \
             collections.OrderedDict()
-        self.graph_captures = self.graph_replays = 0
+        self.graph_captures = self.graph_replays = self.staged_calls = 0
 
     @property
     def mesh(self) -> Optional[Tuple[torch.device, ...]]:
@@ -316,18 +341,14 @@ class Detector:
             return torch.cat([dets, keep[..., None].to(dets.dtype), kps_sel,
                               meta], dim=-1)
 
-    def _input(self, imgs, out: Optional[torch.Tensor] = None
-               ) -> torch.Tensor:
+    def _input(self, imgs) -> torch.Tensor:
         """Stacked canvases -> device tensor: uint8 when the trunk is bf16
-        (4x less host->device traffic, cast on the device), f32 else.
-        out: a graph's static input, which the copy writes instead."""
+        (4x less host->device traffic, cast on the device), f32 else."""
         with span("yunet.upload"):
             x = np.stack(imgs)
             if not (self.dtype == torch.bfloat16 and x.dtype == np.uint8):
                 x = x.astype(np.float32)
-            if out is None:
-                return torch.from_numpy(x).to(self.device)
-            return out.copy_(torch.from_numpy(x))
+            return torch.from_numpy(x).to(self.device)
 
     # -- CUDA graphs of detect's device program ------------------------------
     def _graph_key(self, det_img: np.ndarray, top_k: int) -> Optional[tuple]:
@@ -338,30 +359,68 @@ class Detector:
             return None
         return (det_img.shape, det_img.dtype, self.dtype, top_k)
 
-    def _record(self, x: torch.Tensor, top_k: int):
-        """Capture ``detect_packed(x, top_k)`` as a CUDA graph, which runs
-        nothing -> (replay, static packed output)."""
+    def _stage(self, key: tuple) -> _Stage:
+        """A primed key's stage: host tensors of the shapes and dtypes of
+        its eager call's input and output, page-locked on a CUDA device."""
+        pin = self.device.type == _GRAPH_DEVICE
+        return _Stage(*(torch.empty(shape, dtype=dtype, pin_memory=pin)
+                        for shape, dtype in self._primed[key]))
+
+    def _record(self, stage: _Stage, top_k: int):
+        """Capture as one CUDA graph, which runs nothing: the copy of the
+        stage's input into a new static input, ``detect_packed`` on it and
+        the copy of its output into the stage's -> (replay, static input,
+        static output)."""
+        x = torch.empty_like(stage.x, device=self.device)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
+            x.copy_(stage.x, non_blocking=True)
             packed = self.detect_packed(x, top_k)
-        return graph.replay, packed
+            stage.packed.copy_(packed, non_blocking=True)
+        return graph.replay, x, packed
 
-    def _capture(self, key: tuple, x: torch.Tensor, top_k: int) -> _Graph:
-        """Capture key's program on static input x and keep it, the least
-        recently used graph evicted past ``_GRAPHS_KEPT``."""
-        replay, packed = self._record(x, top_k)
-        graph = self._graphs[key] = _Graph(replay, x, packed)
+    def _capture(self, key: tuple, stage: _Stage, top_k: int) -> _Graph:
+        """Capture key's program between the two halves of its stage and
+        keep it, the least recently used graph (and its stage) evicted
+        past ``_GRAPHS_KEPT``."""
+        graph = self._graphs[key] = _Graph(*self._record(stage, top_k),
+                                           stage)
         del self._primed[key]
         if len(self._graphs) > _GRAPHS_KEPT:
             self._graphs.popitem(last=False)
         self.graph_captures += 1
         return graph
 
-    def _prime(self, key: tuple) -> None:
-        """Note key's first, eager call: its next call captures."""
-        self._primed[key] = None
+    def _prime(self, key: tuple, x: torch.Tensor,
+               packed: torch.Tensor) -> None:
+        """Note key's first, eager call, on input x to output packed: its
+        next call captures, with a stage of their shapes and dtypes."""
+        self._primed[key] = ((x.shape, x.dtype), (packed.shape, packed.dtype))
         if len(self._primed) > _GRAPHS_KEPT:
             self._primed.popitem(last=False)
+
+    def _staged(self, key: tuple, graph: Optional[_Graph],
+                det_img: np.ndarray, top_k: int, lap) -> np.ndarray:
+        """A call of key's graph (captured here on key's second call): the
+        canvas into the stage, the graph's run, the stage's output ->
+        packed rows, a view of the stage that the next call overwrites."""
+        stage = self._stage(key) if graph is None else graph.stage
+        with span("yunet.upload"):
+            np.copyto(stage.x.numpy(), det_img, casting="unsafe")
+        lap("put")
+        if graph is None:
+            graph = self._capture(key, stage, top_k)
+        else:
+            self._graphs.move_to_end(key)
+            self.graph_replays += 1
+        with span("yunet.graph"):
+            graph.run()
+        self.staged_calls += 1
+        lap("dispatch")
+        with span("yunet.readback"):
+            if self.device.type == _GRAPH_DEVICE:
+                torch.cuda.current_stream(self.device).synchronize()
+            return stage.packed.numpy()
 
     def _check_thr(self, score_thr: float) -> None:
         if score_thr < self.cfg.test.score_thr:
@@ -406,25 +465,17 @@ class Detector:
                 top_k = max_dets or self.cfg.test.device_nms_pre
                 key = self._graph_key(det_img, top_k)
                 graph = self._graphs.get(key)
-                x = self._input([det_img],
-                                None if graph is None else graph.x)
-                lap("put")
-                if graph is not None:
-                    self._graphs.move_to_end(key)
-                    self.graph_replays += 1
-                elif key in self._primed:
-                    graph = self._capture(key, x, top_k)
-                if graph is None:
+                if graph is None and key not in self._primed:
+                    x = self._input([det_img])       # eager: no graph yet
+                    lap("put")
                     packed = self.detect_packed(x, top_k)
                     if key is not None:
-                        self._prime(key)
+                        self._prime(key, x, packed)
+                    lap("dispatch")
+                    with span("yunet.readback"):
+                        packed = packed.cpu().numpy()    # ONE readback
                 else:
-                    with span("yunet.graph"):
-                        graph.run()
-                    packed = graph.packed
-                lap("dispatch")
-                with span("yunet.readback"):
-                    packed = packed.cpu().numpy()        # ONE readback
+                    packed = self._staged(key, graph, det_img, top_k, lap)
                 lap("device_readback")
                 with span("yunet.result"):
                     out = _result(*_kept_rows(packed, score_thr), det_scale)
