@@ -945,14 +945,14 @@ STAGE_COPIES = ("Memcpy HtoD (Pinned -> Device)",
 def _eager():
     """Detectors issue detect's program launch by launch inside the
     block: no graph is captured or replayed, whatever a Detector keeps
-    (the rule, ``Detector._graph_key``, gives no key)."""
-    from yunet_tpu_torch.eval.detect import Detector
-    rule = Detector._graph_key
-    Detector._graph_key = lambda *_: None
+    (the rule, ``Graphs.key``, gives no key)."""
+    from yunet_tpu_torch.eval.graphs import Graphs
+    rule = Graphs.key
+    Graphs.key = lambda *_: None
     try:
         yield
     finally:
-        Detector._graph_key = rule
+        Graphs.key = rule
 
 
 def _graph_run(det, imgs, top_k):
@@ -970,7 +970,7 @@ def _graph_run(det, imgs, top_k):
         got = det.detect(img, use_device_nms=True)
         walls.append((time.perf_counter() - t0) * 1e3)
         canvas, scale = resize_img(img, "AUTO")
-        graph = det._graphs.get(det._graph_key(canvas, top_k))
+        graph = det.graphs.kept.get(det.graphs.key(canvas, top_k))
         if graph is not None:
             staged = (graph.stage.x.numpy()[0], graph.stage.packed.numpy(),
                       graph.packed.cpu().numpy())
@@ -1030,7 +1030,7 @@ def _graph_kernels(det, img, bf16, calls=20):
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
-    replays = det.graph_replays
+    replays = det.graphs.replays
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
@@ -1055,10 +1055,10 @@ def _graph_kernels(det, img, bf16, calls=20):
            "copy_names": sorted(set(copies))}
     for name in STAGE_COPIES:
         got[name] = copies.count(name) / calls
-    if det.graph_replays - replays != calls or got[k4] != 29 or \
+    if det.graphs.replays - replays != calls or got[k4] != 29 or \
             got["nms_mask_kernel"] != 1 or got["nms_scan_kernel"] != 1 or \
             any(got[name] != 1 for name in STAGE_COPIES):
-        raise AssertionError(f"{det.graph_replays - replays} replays of "
+        raise AssertionError(f"{det.graphs.replays - replays} replays of "
                              f"{calls}; kernels a call {got}, want 29 {k4}, "
                              f"one NMS mask and scan and one of each of "
                              f"{STAGE_COPIES}")
@@ -1074,9 +1074,10 @@ def _graph_sweep(cfg, model):
     choices and is not kept). Holds the graphed sweep's results equal to
     the eager one's; returns the canvases, those seen more than once, the
     captures and replays, the sweep's wall (ms) each way, and each
-    graphed run's ``Detector._capture`` calls (ms)."""
+    graphed run's captures (``Graphs.record``, ms)."""
     import torch
     from yunet_tpu_torch.eval.detect import Detector, canvas_shape
+    from yunet_tpu_torch.eval.graphs import Graphs
     rng = np.random.RandomState(13)
     imgs = [face_image(rng, int(h), 1024, rng.randint(3, 12))
             for h in rng.randint(576, 1537, GRAPH_SWEEP)]
@@ -1094,12 +1095,12 @@ def _graph_sweep(cfg, model):
         det = Detector(cfg, model, device=DEV, fused=True)
         captures = []
 
-        def timed_capture(*a, det=det, captures=captures):
+        def timed_capture(*a, graphs=det.graphs, captures=captures):
             t0 = time.perf_counter()
-            graph = Detector._capture(det, *a)
+            graph = Graphs.record(graphs, *a)
             captures.append(round((time.perf_counter() - t0) * 1e3, 3))
             return graph
-        det._capture = timed_capture
+        det.graphs.record = timed_capture
         ctx = _eager() if which == "eager" else contextlib.nullcontext()
         with ctx:
             torch.cuda.synchronize()
@@ -1117,7 +1118,8 @@ def _graph_sweep(cfg, model):
                     raise AssertionError(f"{which} sweep's {k} != the eager "
                                          "sweep's")
         if which == "graph":
-            rep["captures_replays"] = [det.graph_captures, det.graph_replays]
+            rep["captures_replays"] = [det.graphs.captures,
+                                       det.graphs.replays]
             rep["capture_ms"].append(captures)
         if i:
             rep["wall_ms"][which].append(round(wall, 3))
@@ -1138,15 +1140,15 @@ def phase_graph(model):
     eager in turns. Then ``_graph_sweep``."""
     import torch
     from yunet_tpu_torch.config import yunet_n
-    from yunet_tpu_torch.eval.detect import (_GRAPHS_KEPT, Detector,
-                                             resize_img)
+    from yunet_tpu_torch.eval.detect import Detector, resize_img
+    from yunet_tpu_torch.eval.graphs import GRAPHS_KEPT
     cfg = yunet_n()
     rng = np.random.RandomState(9)
     imgs = {hw: [face_image(rng, *hw, rng.randint(2, 9))
                  for _ in range(GRAPH_CALLS)] for hw in GRAPH_EVICT}
-    if len(GRAPH_EVICT) != _GRAPHS_KEPT + 1:
+    if len(GRAPH_EVICT) != GRAPHS_KEPT + 1:
         raise AssertionError(f"GRAPH_EVICT holds {len(GRAPH_EVICT)} canvases,"
-                             f" a Detector keeps {_GRAPHS_KEPT} graphs")
+                             f" a Detector keeps {GRAPHS_KEPT} graphs")
     report = {}
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).split(".")[-1]
@@ -1171,22 +1173,23 @@ def phase_graph(model):
         if got != want:
             raise AssertionError(f"graph {name}: launches {got}, want {want}")
         reps = len(GRAPH_CANVASES) * (GRAPH_CALLS - 2)
-        if (det.graph_captures, det.graph_replays) != (
-                len(GRAPH_CANVASES), reps) or graphed != reps + len(
-                GRAPH_CANVASES) or det.staged_calls != graphed:
+        gs = det.graphs
+        if (gs.captures, gs.replays) != (len(GRAPH_CANVASES), reps) or \
+                graphed != reps + len(GRAPH_CANVASES) or \
+                gs.captures + gs.replays != graphed:
             raise AssertionError(
-                f"graph {name}: {det.graph_captures} captures, "
-                f"{det.graph_replays} replays, {graphed} graphed calls, "
-                f"{det.staged_calls} staged; want {len(GRAPH_CANVASES)}, "
-                f"{reps}, {reps + len(GRAPH_CANVASES)} twice")
+                f"graph {name}: {gs.captures} captures, {gs.replays} replays,"
+                f" {graphed} graphed calls; want {len(GRAPH_CANVASES)}, "
+                f"{reps}, {reps + len(GRAPH_CANVASES)} graphed, and "
+                "captures + replays == graphed")
         calls_ms = {f"{h}x{w}": {"first": round(v[0], 3),
                                  "capture": round(v[1], 3),
                                  "replay_median": round(statistics.median(
                                      v[2:]), 3)}
                     for (h, w), v in walls.items()}
         log(f"[graph] {name}: {n} detects at {list(GRAPH_CANVASES)} == the "
-            f"eager program bit for bit; {det.graph_captures} captures, "
-            f"{det.graph_replays} replays, {det.staged_calls} staged; "
+            f"eager program bit for bit; {gs.captures} captures, "
+            f"{gs.replays} replays; "
             f"launches {got} (eager calls and captures only); detect wall "
             f"ms {calls_ms}")
 
@@ -1195,18 +1198,19 @@ def phase_graph(model):
         ev = Detector(cfg, model, device=DEV, dtype=dt, fused=True)
         for hw in GRAPH_EVICT:
             _graph_run(ev, imgs[hw][:2], top_k)
-        first = ev._graph_key(resize_img(imgs[GRAPH_EVICT[0]][0],
+        first = ev.graphs.key(resize_img(imgs[GRAPH_EVICT[0]][0],
                                          "AUTO")[0], top_k)
-        evicted = first not in ev._graphs
+        evicted = first not in ev.graphs.kept
         _graph_run(ev, imgs[GRAPH_EVICT[0]][2:5], top_k)
-        want = (len(GRAPH_EVICT) + 1, 1, _GRAPHS_KEPT)
-        got_ev = (ev.graph_captures, ev.graph_replays, len(ev._graphs))
+        want = (len(GRAPH_EVICT) + 1, 1, GRAPHS_KEPT)
+        got_ev = (ev.graphs.captures, ev.graphs.replays,
+                  len(ev.graphs.kept))
         if not evicted or got_ev != want:
             raise AssertionError(
                 f"graph {name} eviction: first canvas evicted {evicted}; "
                 f"captures, replays, kept {got_ev}, want {want}")
         log(f"[graph] {name}: {len(GRAPH_EVICT)} canvases to a capture "
-            f"each, {_GRAPHS_KEPT} kept: the first evicted, then eager, "
+            f"each, {GRAPHS_KEPT} kept: the first evicted, then eager, "
             "recaptured and replayed; bits equal")
         del ev
 
@@ -1301,7 +1305,7 @@ def _scrfd_kernels(det, img, calls=20):
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
-    replays = det.graph_replays
+    replays = det.graphs.replays
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
@@ -1327,9 +1331,9 @@ def _scrfd_kernels(det, img, calls=20):
            "nms_scan_kernel": sum("nms_scan_kernel" in n
                                   for n in names) / calls,
            "conv_names": {n[:160]: c for n, c in convs.most_common()}}
-    if det.graph_replays - replays != calls or got["conv"] < SCRFD_CONVS \
+    if det.graphs.replays - replays != calls or got["conv"] < SCRFD_CONVS \
             or got["nms_mask_kernel"] != 1 or got["nms_scan_kernel"] != 1:
-        raise AssertionError(f"scrfd: {det.graph_replays - replays} "
+        raise AssertionError(f"scrfd: {det.graphs.replays - replays} "
                              f"replays of {calls}; kernels a call {got}")
     return got
 
@@ -1353,10 +1357,10 @@ def phase_scrfd():
             for _ in range(GRAPH_CALLS)]
     graphed, walls = _graph_run(det, imgs, top_k)
     reps = GRAPH_CALLS - 2
-    if (det.graph_captures, det.graph_replays, graphed) != (1, reps,
-                                                            reps + 1):
+    if (det.graphs.captures, det.graphs.replays, graphed) != (1, reps,
+                                                              reps + 1):
         raise AssertionError(
-            f"scrfd: {det.graph_captures} captures, {det.graph_replays} "
+            f"scrfd: {det.graphs.captures} captures, {det.graphs.replays} "
             f"replays, {graphed} graphed calls; want 1, {reps}, {reps + 1}")
     _, fresh = _scrfd_detector()
     counts = []
@@ -1368,8 +1372,8 @@ def phase_scrfd():
         counts.append((scrfd_conv.launches - before,
                        launch_counts()["greedy_nms"]))
     want = [(SCRFD_CONVS, 2), (SCRFD_CONVS, 2), (0, 0)]
-    if counts != want or (fresh.graph_captures,
-                          fresh.graph_replays) != (1, 1):
+    if counts != want or (fresh.graphs.captures,
+                          fresh.graphs.replays) != (1, 1):
         raise AssertionError(f"scrfd: counted (convs, K3) a call {counts}, "
                              f"want {want}")
     del fresh
@@ -3690,8 +3694,8 @@ def phase_export(sd):
         raise AssertionError(f"imported f32 trunk: kernel against plain, max "
                              f"abs err {f32_err} (rtol/atol 1e-4)")
     # eagerly: a graph keeps the kernels of its capture
-    graph_calls = (dets[torch.float32].graph_captures,
-                   dets[torch.float32].graph_replays)
+    graph_calls = (dets[torch.float32].graphs.captures,
+                   dets[torch.float32].graphs.replays)
     fused_mod.fused_conv_dp = fused_conv_dp_plain
     try:
         with _eager():
@@ -3699,8 +3703,8 @@ def phase_export(sd):
                      for img in imgs]
     finally:
         fused_mod.fused_conv_dp = kernel
-    if (dets[torch.float32].graph_captures,
-            dets[torch.float32].graph_replays) != graph_calls:
+    if (dets[torch.float32].graphs.captures,
+            dets[torch.float32].graphs.replays) != graph_calls:
         raise AssertionError("the plain units' detects captured or "
                              "replayed a graph")
     for g, w in zip(results[torch.float32], plain):

@@ -1,18 +1,18 @@
-"""Which detect calls replay a CUDA graph (``Detector._graph_key``,
-``_capture``, ``_prime``), on the CPU: the capture and the replay are a
-stub here (``_record``), since a CPU has no CUDA graph, and the rule
-(``_graph_key``) sees a CUDA device in place of the CPU. A key's first
-call runs eagerly, its
-second captures and runs the graph, later calls replay it; the canvas,
-``max_dets`` and the input dtype are parts of the key; the least recently
-used graph goes past ``_GRAPHS_KEPT``, its stage with it; a CPU, unfused
-or host-NMS detect and ``detect_batch`` never capture; the wrappers'
-counters count the launches a capture issues and nothing for a replay; a
-failed capture raises and keeps no graph; the ``timings`` keys and the
-stage spans around ``yunet.graph``; a graph's call goes through its stage
-(``_Stage``: the canvas in, the packed rows out), bit-equal to the eager
-program, with nothing of one call left in the stage or the result of
-another, and ``staged_calls`` counts those calls alone."""
+"""Which detect calls replay a CUDA graph (``eval/graphs.py``: a
+Detector's ``graphs``), on the CPU: the capture and the replay are a
+stub here (``Graphs.record``), since a CPU has no CUDA graph, and the
+rule (``Graphs.key``) sees a CUDA device in place of the CPU. A key's
+first call runs eagerly, its second captures and runs the graph, later
+calls replay it; the canvas, ``max_dets`` and the input dtype are parts
+of the key; the least recently used graph goes past ``GRAPHS_KEPT``, its
+stage with it; a CPU, unfused or host-NMS detect and ``detect_batch``
+never capture; the wrappers' counters count the launches a capture
+issues and nothing for a replay; a failed capture raises and keeps no
+graph; the ``timings`` keys and the stage spans around ``yunet.graph``;
+a graph's call goes through its stage (the canvas in, the packed rows
+out), bit-equal to the eager program, with nothing of one call left in
+the stage or the result of another, and the captures and replays count
+those calls alone."""
 
 import gc
 import gzip
@@ -27,6 +27,7 @@ import torch
 from yunet_tpu_torch.config import yunet_n
 from yunet_tpu_torch.eval import detect as detect_mod
 from yunet_tpu_torch.eval.detect import Detector
+from yunet_tpu_torch.eval.graphs import GRAPHS_KEPT, Graphs
 from yunet_tpu_torch.models.detector import YuNet
 from yunet_tpu_torch.models.fused import fold_inference_params
 from yunet_tpu_torch.ops.convdp import fused_conv_dp
@@ -68,7 +69,7 @@ def _det(model, kind="fused", dtype=torch.float32):
 
 
 class Stub:
-    """``Detector._record`` on the CPU: counts the launches the wrappers
+    """``Graphs.record`` on the CPU: counts the launches the wrappers
     count while they queue the program into a capture (the CPU's plain
     versions count none), runs it once, from the stage's input to the
     stage's output, and returns a replay that runs it again, the copy in
@@ -80,20 +81,20 @@ class Stub:
         self.records = 0
         self.frozen = frozen
 
-    def __call__(self, det, stage, top_k):
+    def __call__(self, graphs, stage, top_k, program):
         self.records += 1
         fused_conv_dp.launches += K4
         fused_conv_dp.launches_mma += K4
         greedy_nms_keep.launches += K3
         x = stage.x.clone()
-        packed = det.detect_packed(x, top_k)
+        packed = program(x, top_k)
         stage.packed.copy_(packed)
 
         def replay():
             if not self.frozen:
                 x.copy_(stage.x)
                 with torch.inference_mode():
-                    packed.copy_(det.detect_packed(x, top_k))
+                    packed.copy_(program(x, top_k))
                 stage.packed.copy_(packed)
         return replay, x, packed
 
@@ -107,27 +108,29 @@ def counters(monkeypatch):
 
 
 def _on_cuda(monkeypatch):
-    """``Detector._graph_key`` as it rules for a Detector on a CUDA
-    device: the rule itself, shown a CUDA device in place of the CPU."""
-    rule = Detector._graph_key
+    """``Graphs.key`` as it rules for a Detector on a CUDA device: the
+    rule itself, shown a CUDA device in place of the CPU."""
+    rule = Graphs.key
 
-    def key(det, det_img, top_k):
-        device, det.device = det.device, torch.device("cuda")
+    def key(graphs, det_img, top_k):
+        device, graphs.device = graphs.device, torch.device("cuda")
         try:
-            return rule(det, det_img, top_k)
+            return rule(graphs, det_img, top_k)
         finally:
-            det.device = device
-    monkeypatch.setattr(Detector, "_graph_key", key)
+            graphs.device = device
+    monkeypatch.setattr(Graphs, "key", key)
+
+
+def _stub(monkeypatch, s):
+    """The graph rule on the CPU, with s in place of the capture."""
+    _on_cuda(monkeypatch)
+    monkeypatch.setattr(Graphs, "record", lambda graphs, *a: s(graphs, *a))
+    return s
 
 
 @pytest.fixture
 def stub(monkeypatch):
-    """The graph rule on the CPU, with Stub in place of the capture."""
-    s = Stub()
-    _on_cuda(monkeypatch)
-    monkeypatch.setattr(Detector, "_record",
-                        lambda det, stage, top_k: s(det, stage, top_k))
-    return s
+    return _stub(monkeypatch, Stub())
 
 
 def _eager(model, img, dtype=torch.float32, **kw):
@@ -150,14 +153,14 @@ def test_capture_on_second_call_replay_after(model, stub, kind):
     seen = []
     for i, img in enumerate(imgs):
         got = det.detect(img, use_device_nms=True)
-        seen.append((stub.records, det.graph_captures, det.graph_replays))
+        seen.append((stub.records, det.graphs.captures, det.graphs.replays))
         _equal(got, _eager(model, img))
     assert seen == [(0, 0, 0), (1, 1, 0), (1, 1, 1), (1, 1, 2), (1, 1, 3)]
-    assert len(det._graphs) == 1 and not det._primed
-    (graph,) = det._graphs.values()
+    assert len(det.graphs.kept) == 1 and not det.graphs.primed
+    (graph,) = det.graphs.kept.values()
     assert graph.x.shape == graph.stage.x.shape == (1, 64, 96, 3)
     assert graph.stage.packed.shape == graph.packed.shape
-    assert det.staged_calls == 4
+    assert det.graphs.captures + det.graphs.replays == 4
 
 
 def test_key_holds_canvas_max_dets_and_input_dtype(model, stub):
@@ -169,24 +172,24 @@ def test_key_holds_canvas_max_dets_and_input_dtype(model, stub):
     for kw in calls:                       # each a new key: eager
         kw = dict(kw)
         det.detect(kw.pop("img"), use_device_nms=True, **kw)
-    assert stub.records == det.graph_captures == 0
-    assert len(det._primed) == 4
+    assert stub.records == det.graphs.captures == 0
+    assert len(det.graphs.primed) == 4
     for n, kw in enumerate(calls, 1):      # each key's second call
         kw = dict(kw)
         img = kw.pop("img")
         _equal(det.detect(img, use_device_nms=True, **kw),
                _eager(model, img, **kw))
-        assert det.graph_captures == n
-    assert det.graph_replays == 0
-    assert {k[0][:2] for k in det._graphs} == {(64, 96), (96, 64)}
-    assert {k[3] for k in det._graphs} == {50, det.cfg.test.device_nms_pre}
-    assert {k[1] for k in det._graphs} == {np.dtype(np.uint8),
+        assert det.graphs.captures == n
+    assert det.graphs.replays == 0
+    assert {k[0][:2] for k in det.graphs.kept} == {(64, 96), (96, 64)}
+    assert {k[3] for k in det.graphs.kept} == {50, det.cfg.test.device_nms_pre}
+    assert {k[1] for k in det.graphs.kept} == {np.dtype(np.uint8),
                                            np.dtype(np.float32)}
 
 
 def test_least_recently_used_graph_goes_past_the_cap(model, stub):
     det = _det(model)
-    cap = detect_mod._GRAPHS_KEPT
+    cap = GRAPHS_KEPT
     shapes = [(32 * (i + 1), 64) for i in range(cap + 1)]
     for hw in shapes[:cap]:
         for _ in range(2):
@@ -194,15 +197,15 @@ def test_least_recently_used_graph_goes_past_the_cap(model, stub):
     det.detect(_img(*shapes[0], 3), use_device_nms=True)   # replayed: used
     for _ in range(2):                          # the fifth evicts shapes[1]
         det.detect(_img(*shapes[cap], 3), use_device_nms=True)
-    assert (det.graph_captures, det.graph_replays) == (cap + 1, 1)
+    assert (det.graphs.captures, det.graphs.replays) == (cap + 1, 1)
     # least recently used first: shapes[0]'s replay moved it to the end
-    assert [k[0][:2] for k in det._graphs] == \
+    assert [k[0][:2] for k in det.graphs.kept] == \
         shapes[2:cap] + [shapes[0], shapes[cap]]
     # the evicted key starts over: eager, then a capture
     det.detect(_img(*shapes[1], 3), use_device_nms=True)
-    assert det.graph_captures == cap + 1
+    assert det.graphs.captures == cap + 1
     det.detect(_img(*shapes[1], 3), use_device_nms=True)
-    assert det.graph_captures == cap + 2 and len(det._graphs) == cap
+    assert det.graphs.captures == cap + 2 and len(det.graphs.kept) == cap
 
 
 def test_keys_run_once_are_capped_too(model, stub):
@@ -211,10 +214,10 @@ def test_keys_run_once_are_capped_too(model, stub):
     det = _det(model)
     for _ in range(2):
         det.detect(_img(64, 64, 0), use_device_nms=True)
-    for i in range(2 * detect_mod._GRAPHS_KEPT):
+    for i in range(2 * GRAPHS_KEPT):
         det.detect(_img(32, 32 * (i + 3), 0), use_device_nms=True)
-    assert len(det._primed) == detect_mod._GRAPHS_KEPT
-    assert len(det._graphs) == 1 and det.graph_captures == 1
+    assert len(det.graphs.primed) == GRAPHS_KEPT
+    assert len(det.graphs.kept) == 1 and det.graphs.captures == 1
 
 
 @pytest.mark.parametrize("case", ["cpu", "unfused", "host_nms",
@@ -222,7 +225,7 @@ def test_keys_run_once_are_capped_too(model, stub):
 def test_no_graph_off_the_path(model, monkeypatch, case):
     def refuse(*_):
         raise AssertionError("captured off the graph path")
-    monkeypatch.setattr(Detector, "_record", refuse)
+    monkeypatch.setattr(Graphs, "record", refuse)
     if case != "cpu":                    # the rule's device check passes
         _on_cuda(monkeypatch)
     det = _det(model, "unfused" if case == "unfused" else "fused")
@@ -232,9 +235,9 @@ def test_no_graph_off_the_path(model, monkeypatch, case):
             det.detect_batch([img], "AUTO", use_device_nms=True)
         else:
             det.detect(img, use_device_nms=case != "host_nms")
-    assert (det.graph_captures, det.graph_replays, det.staged_calls) == \
-        (0, 0, 0)
-    assert not det._graphs and not det._primed
+    assert (det.graphs.captures, det.graphs.replays,
+            det.graphs.captures + det.graphs.replays) == (0, 0, 0)
+    assert not det.graphs.kept and not det.graphs.primed
 
 
 def test_capture_counts_its_launches_and_a_replay_none(model, stub,
@@ -249,17 +252,17 @@ def test_capture_counts_its_launches_and_a_replay_none(model, stub,
     for n in (1, 2):
         det.detect(img, use_device_nms=True)      # replay: no wrapper runs
         assert counters() == (K4, K4, K3)
-        assert det.graph_replays == n
+        assert det.graphs.replays == n
 
 
 def test_failed_capture_raises_and_keeps_no_graph(model, monkeypatch):
     records = []
 
-    def fail(det, stage, top_k):
+    def fail(graphs, stage, top_k, program):
         records.append(stage.x.shape)
         raise RuntimeError("capture refused")
     _on_cuda(monkeypatch)
-    monkeypatch.setattr(Detector, "_record", fail)
+    monkeypatch.setattr(Graphs, "record", fail)
     det = _det(model)
     img = _img(64, 96, 8)
     det.detect(img, use_device_nms=True)
@@ -267,7 +270,8 @@ def test_failed_capture_raises_and_keeps_no_graph(model, monkeypatch):
         with pytest.raises(RuntimeError, match="capture refused"):
             det.detect(img, use_device_nms=True)   # call tries again
         assert len(records) == n
-    assert det.graph_captures == det.staged_calls == 0 and not det._graphs
+    assert det.graphs.captures == 0 and not det.graphs.kept
+    assert det.graphs.captures + det.graphs.replays == 0
 
 
 def test_timings_keys_unchanged_on_the_graph_path(model, stub):
@@ -277,7 +281,7 @@ def test_timings_keys_unchanged_on_the_graph_path(model, stub):
         timings = {}
         det.detect(img, use_device_nms=True, timings=timings)
         assert set(timings) == KEYS and all(v >= 0 for v in timings.values())
-    assert (det.graph_captures, det.graph_replays) == (1, 1)
+    assert (det.graphs.captures, det.graphs.replays) == (1, 1)
 
 
 def _spans(tmp_path, fn):
@@ -297,10 +301,7 @@ def test_replay_opens_the_graph_span_and_no_program_span(model, monkeypatch,
                                                          tmp_path):
     """On a replay nothing of the program runs on the host: the call's
     spans are the stages around one yunet.graph."""
-    s = Stub(frozen=True)
-    _on_cuda(monkeypatch)
-    monkeypatch.setattr(Detector, "_record",
-                        lambda det, stage, top_k: s(det, stage, top_k))
+    _stub(monkeypatch, Stub(frozen=True))
     det = _det(model)
     img = _img(64, 96, 10)
     for _ in range(2):
@@ -312,18 +313,19 @@ def test_replay_opens_the_graph_span_and_no_program_span(model, monkeypatch,
 
 
 def test_no_key_runs_eagerly_past_a_kept_graph(model, stub, monkeypatch):
-    """With ``_graph_key`` returning None (a caller that swaps a module
+    """With ``Graphs.key`` returning None (a caller that swaps a module
     function in) a key that holds a graph runs eagerly: no replay, no
     capture, nothing primed."""
     det = _det(model)
     img = _img(64, 96, 11)
     for _ in range(3):                            # eager, capture, replay
         det.detect(img, use_device_nms=True)
-    monkeypatch.setattr(Detector, "_graph_key", lambda *_: None)
+    monkeypatch.setattr(Graphs, "key", lambda *_: None)
     for _ in range(2):
         _equal(det.detect(img, use_device_nms=True), _eager(model, img))
-    assert (stub.records, det.graph_captures, det.graph_replays) == (1, 1, 1)
-    assert len(det._graphs) == 1 and not det._primed
+    assert (stub.records, det.graphs.captures,
+            det.graphs.replays) == (1, 1, 1)
+    assert len(det.graphs.kept) == 1 and not det.graphs.primed
 
 
 @pytest.mark.parametrize("hw", [(64, 96), (96, 64)])
@@ -346,7 +348,7 @@ def test_staged_replay_equals_the_eager_program(model, stub, hw, trunk,
         got = det.detect(img, use_device_nms=True)
         _equal(got, _eager(model, img, dtype=trunk))
         if i:
-            (graph,) = det._graphs.values()
+            (graph,) = det.graphs.kept.values()
             assert graph.stage.x.dtype == stage_dtype
             np.testing.assert_array_equal(graph.stage.x.numpy()[0],
                                           img.astype(np.float32))
@@ -355,8 +357,8 @@ def test_staged_replay_equals_the_eager_program(model, stub, hw, trunk,
                     graph.stage.x.numpy().dtype)), det.cfg.test.device_nms_pre)
             np.testing.assert_array_equal(graph.stage.packed.numpy(),
                                           want.numpy())
-    assert (det.graph_captures, det.graph_replays, det.staged_calls) == \
-        (1, 3, 4)
+    assert (det.graphs.captures, det.graphs.replays,
+            det.graphs.captures + det.graphs.replays) == (1, 3, 4)
 
 
 def test_smaller_frame_after_a_full_canvas_is_staged_with_its_pad_zeroed(
@@ -370,11 +372,11 @@ def test_smaller_frame_after_a_full_canvas_is_staged_with_its_pad_zeroed(
     for _ in range(3):                      # eager, capture, replay
         _equal(det.detect(full, mode, use_device_nms=True),
                _eager(model, full, mode=mode))
-    (graph,) = det._graphs.values()
+    (graph,) = det.graphs.kept.values()
     graph.stage.x.fill_(255)
     small = _img(40, 96, 31)
     got = det.detect(small, mode, use_device_nms=True)
-    assert det.graph_replays == 2
+    assert det.graphs.replays == 2
     canvas, scale = detect_mod.resize_img(small, mode)
     assert canvas.shape == (64, 96, 3) and scale == 1.0
     staged = graph.stage.x.numpy()[0]
@@ -390,11 +392,11 @@ def test_a_result_outlives_the_next_call(model, stub):
     imgs = [_img(64, 96, s) for s in (40, 41, 42, 43)]
     for img in imgs[:2]:                    # eager, capture
         det.detect(img, use_device_nms=True)
-    (graph,) = det._graphs.values()
+    (graph,) = det.graphs.kept.values()
     got = det.detect(imgs[2], use_device_nms=True)
     kept = {k: v.copy() for k, v in got.items()}
     det.detect(imgs[3], use_device_nms=True)
-    assert det.graph_replays == 2
+    assert det.graphs.replays == 2
     for k, v in got.items():
         assert not np.shares_memory(v, graph.stage.packed.numpy())
         np.testing.assert_array_equal(v, kept[k])
@@ -403,38 +405,42 @@ def test_a_result_outlives_the_next_call(model, stub):
 
 def test_an_evicted_graph_drops_its_stage(model, stub):
     det = _det(model)
-    shapes = [(32 * (i + 1), 64) for i in range(detect_mod._GRAPHS_KEPT + 1)]
+    shapes = [(32 * (i + 1), 64) for i in range(GRAPHS_KEPT + 1)]
     for _ in range(2):
         det.detect(_img(*shapes[0], 50), use_device_nms=True)
-    (graph,) = det._graphs.values()
+    (graph,) = det.graphs.kept.values()
     held = [weakref.ref(t) for t in graph.stage]
     del graph
     for hw in shapes[1:]:                   # the last evicts shapes[0]
         for _ in range(2):
             det.detect(_img(*hw, 51), use_device_nms=True)
     gc.collect()
-    assert [k[0][:2] for k in det._graphs] == shapes[1:]
+    assert [k[0][:2] for k in det.graphs.kept] == shapes[1:]
     assert all(ref() is None for ref in held)
 
 
 def test_staged_calls_count_the_graphs_calls_alone(model, stub, monkeypatch):
-    """A capture and a replay go through the stage; the key's eager first
-    call, a host-NMS detect, detect_batch and a call with no key do not."""
+    """A capture and a replay go through the stage, and count; the key's
+    eager first call, a host-NMS detect, detect_batch and a call with no
+    key do not."""
     det = _det(model)
     img = _img(64, 96, 60)
     seen = []
+
+    def staged():
+        seen.append(det.graphs.captures + det.graphs.replays)
     for _ in range(3):                      # eager, capture, replay
         det.detect(img, use_device_nms=True)
-        seen.append(det.staged_calls)
+        staged()
     det.detect(img)
     det.detect_batch([img, img], "AUTO", use_device_nms=True)
     det.detect_batch([img], "AUTO")
-    seen.append(det.staged_calls)
-    monkeypatch.setattr(Detector, "_graph_key", lambda *_: None)
+    staged()
+    monkeypatch.setattr(Graphs, "key", lambda *_: None)
     det.detect(img, use_device_nms=True)
-    seen.append(det.staged_calls)
+    staged()
     assert seen == [0, 1, 2, 2, 2]
-    assert (det.graph_captures, det.graph_replays) == (1, 1)
+    assert (det.graphs.captures, det.graphs.replays) == (1, 1)
 
 
 @pytest.mark.parametrize("frame", ["flipped", "strided", "float64"])
@@ -450,7 +456,7 @@ def test_a_view_or_a_float64_frame_is_staged(model, stub, frame):
     for img in imgs:
         assert img.shape == (64, 96, 3)
         _equal(det.detect(img, use_device_nms=True), _eager(model, img))
-    (graph,) = det._graphs.values()
+    (graph,) = det.graphs.kept.values()
     np.testing.assert_array_equal(graph.stage.x.numpy()[0],
                                   imgs[-1].astype(np.float32))
-    assert det.staged_calls == 3
+    assert det.graphs.captures + det.graphs.replays == 3

@@ -7,7 +7,8 @@ make_scrfd_10g_bnkps.py:draw``): the unfused model and the folded f32
 tree, the folded bf16 tree against a tolerance that float8 fails, the
 decode against ``compare_inference.numpy_decode_scrfd``, detection with
 host NMS, the counts of the preset, the 58 counted convs and the spans
-of a detect, and get_flops."""
+of a detect, get_flops, and ``init_detector``'s formats for an SCRFD
+plan."""
 
 import dataclasses
 import gzip
@@ -23,6 +24,7 @@ from portbench.reference import scrfd as ref
 from portbench.weights.make_scrfd_10g_bnkps import draw
 from portbench.yardstick import gen
 from portbench.yardstick import scrfd as yardstick
+from yunet_tpu_torch.apis import init_detector
 from yunet_tpu_torch.config import get_config
 from yunet_tpu_torch.eval.detect import Detector
 from yunet_tpu_torch.models.scrfd import (SCRFD, fold_scrfd, scrfd_conv,
@@ -206,3 +208,33 @@ def test_get_flops_reports_the_scrfd_preset(capsys):
     assert f"Flops: {flops.count_macs(CFG.model, (480, 640)) / 1e6:.2f} " \
         "MFLOPs" in lines
     assert "Params: 4,229,905" in lines
+
+
+@pytest.mark.parametrize("fmt", [None, ".npz", ".onnx", ".pth"])
+def test_init_detector_reads_a_pth_alone(fmt, tmp_path):
+    """An SCRFD plan has no seeded init, no flat .npz and no .onnx import:
+    each raises a ValueError that names the .pth state dict; a .pth loads
+    by module name and detects the rows of ``Detector(cfg, sd)``."""
+    frames, sd, _ = _setup((64, 64), n=1)
+    sd = harness.port_state_dict(sd)
+    path = None if fmt is None else str(tmp_path / f"scrfd{fmt}")
+    if fmt == ".pth":
+        torch.save(sd, path)
+    elif fmt == ".npz":
+        np.savez(path, **{k: v.numpy() for k, v in sd.items()})
+    elif fmt == ".onnx":
+        open(path, "wb").close()
+    if fmt != ".pth":
+        with pytest.raises(ValueError, match=r"\.pth state dict"):
+            init_detector("scrfd_10g_bnkps", path, device="cpu")
+        return
+    det = init_detector("scrfd_10g_bnkps", path, device="cpu",
+                        dtype=torch.float32, fused=True)
+    want = Detector(CFG, sd, device="cpu", dtype=torch.float32, fused=True)
+    for use_device_nms in (False, True):
+        got, ref_ = (d.detect(frames[0], "AUTO",
+                              use_device_nms=use_device_nms)
+                     for d in (det, want))
+        assert len(ref_["bboxes"])
+        for k in ("bboxes", "kps", "labels"):
+            np.testing.assert_array_equal(got[k], ref_[k])

@@ -14,7 +14,7 @@ import torch
 
 from .config import Config, get_config
 from .eval.detect import Detector
-from .models.detector import YuNet
+from .models import YuNet, architecture
 from .train.loop import fit as train_detector  # noqa: F401  (re-export)
 
 # JAX's init_random_seed(None): int(jax.random.randint(PRNGKey(0), (), 0,
@@ -73,12 +73,17 @@ def init_detector(config: Union[str, Config],
         0 (drawn on the CPU, so every device gets the same weights);
       * an ``.onnx`` file (the reference's or export_onnx's): its
         BN-folded weights drive a fused Detector that holds no model;
-      * any checkpoint ``read_weights`` reads.
+      * any checkpoint ``read_weights`` reads;
+      * for SCRFD, a ``.pth`` state dict alone.
     """
     cfg = get_config(config) if isinstance(config, str) else config
+    arch = architecture(cfg.model)
+    if arch is not YuNet and not (checkpoint or "").endswith(".pth"):
+        raise ValueError(f"{arch.__name__} loads a .pth state dict alone "
+                         f"(by module name), not {checkpoint!r}")
     if checkpoint is None:
-        model = YuNet(cfg.model, device=torch.device("cpu"),
-                      generator=torch.Generator().manual_seed(0))
+        model = arch(cfg.model, device=torch.device("cpu"),
+                     generator=torch.Generator().manual_seed(0))
         return Detector(cfg, model, device=device, dtype=dtype, fused=fused)
     if checkpoint.endswith(".onnx"):
         from .export.onnx_import import load_onnx_params

@@ -4,16 +4,10 @@ rescale — counterpart of ``yunet_tpu/eval/detect.py``.
   * ``resize_img`` modes ORIGIN / AUTO (zero-pad H, W up to a multiple of
     32) and fixed "W,H" canvases with an aspect-preserving resize through
     ``ops/resize.py`` (cv2.resize's bytes, without OpenCV);
-  * score fusion sigmoid(cls)*sigmoid(obj) and decode in f32 on the device
-    (YuNet); for an SCRFD plan (``config.SCRFDConfig``), sigmoid(cls) and
-    the distance decode over its anchors;
+  * score and decode in f32 on the device (``models.architecture``);
   * NMS either exact on the host (``native.nms``, uncapped — the AP-parity
     path and the default) or on the device (``ops/nms.py``: a top-k cap
     and one packed readback);
-  * on a CUDA device, a fused Detector's ``detect`` with device NMS
-    replays its batch-1 program as one CUDA graph per canvas (``_Graph``)
-    from the second call of a canvas on, in place of issuing its ~85
-    launches one by one;
   * ``Detector.detect_sweep``: the WIDER sweep over many images of varying
     sizes, grouped by canvas, in ladder-sized batches;
     ``Detector.detect_tta``: multi-scale and flip test-time augmentation;
@@ -23,7 +17,6 @@ rescale — counterpart of ``yunet_tpu/eval/detect.py``.
 
 from __future__ import annotations
 
-import collections
 import copy
 import dataclasses
 import logging
@@ -32,34 +25,14 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..config import Config, SCRFDConfig
-from ..models.detector import YuNet
-from ..models.fused import fold_inference_params, fused_forward
-from ..models.head import flatten_level_outputs
-from ..models.scrfd import SCRFD, fold_scrfd, scrfd_forward
-from ..ops.boxes import bbox_decode, distance_decode, fuse_score, kps_decode
+from ..config import Config
+from ..models import YuNet, architecture
 from ..ops.nms import device_nms, device_nms_batched
 from ..ops.priors import grid_priors
 from ..ops.resize import resize
 from ..utils.profiling import laps, span
 from .. import native
-
-# the device type whose Detectors replay detect's program as CUDA graphs
-_GRAPH_DEVICE = "cuda"
-# the captured programs a Detector keeps, the least recently used evicted
-# first: a sweep's solo images of many sizes cannot grow memory unbounded
-_GRAPHS_KEPT = 4
-
-
-# one captured batch-1 device program (``Detector.detect_packed``) and its
-# stage: ``run`` replays it, which copies ``stage.x`` into its static input
-# ``x`` (1, H, W, 3), runs the program into its static ``packed`` output
-# and copies that into ``stage.packed``
-_Graph = collections.namedtuple("_Graph", ("run", "x", "packed", "stage"))
-# a graph's host side: ``x`` and ``packed``, tensors of the static input's
-# and output's shapes and dtypes, page-locked on a CUDA Detector; each
-# call's upload writes ``x``, its readback reads ``packed``
-_Stage = collections.namedtuple("_Stage", ("x", "packed"))
+from .graphs import Graphs
 
 
 def canvas_shape(h: int, w: int, mode: Union[str, Tuple[int, int]],
@@ -141,20 +114,17 @@ def _result(sel: np.ndarray, kps_sel: np.ndarray,
 
 
 class Detector:
-    """Inference wrapper around a YuNet, or an SCRFD, on one device: the
-    model is built from the plan's kind (``cfg.model`` a ``ModelConfig``
-    or an ``SCRFDConfig``).
+    """Inference wrapper around a YuNet, or an SCRFD, on one device
+    (``models.architecture(cfg.model)``).
 
     dtype: torch.bfloat16 runs the conv trunk in bf16 (inputs shipped as
     uint8 and cast on the device), torch.float32 in f32. Score, decode and
     NMS are f32 either way.
 
-    fused: fold BN into the depthwise convs. ``detect`` then runs every
-    ConvDPUnit through the fused kernel (fastest at batch 1 on the TPU);
+    fused: fold BN into the convs. ``detect`` then runs every ConvDPUnit
+    through the fused kernel (fastest at batch 1 on the TPU);
     ``detect_batch`` runs the folded units through the library convs, as
-    the JAX serving program does. An SCRFD plan folds BN (and its Scales)
-    into its dense convs, cast to ``dtype``, which the library convs run
-    channels-last on either path (``models/scrfd.py:scrfd_forward``).
+    the JAX serving program does. SCRFD has no kernel of its own.
 
     folded: a pre-folded tree (``export/onnx_import.py:load_onnx_params``)
     in place of a model: the detector then runs fused and holds no model
@@ -169,39 +139,8 @@ class Detector:
     device, made at the first sharded call from the weights of that
     moment and kept; setting ``mesh`` again drops the replicas.
 
-    CUDA graphs: a fused Detector on a CUDA device runs
-    ``detect(use_device_nms=True)``'s device program (``detect_packed``)
-    as a CUDA graph, one for each canvas shape, input dtype, trunk dtype
-    and top-k. A key's first call runs eagerly (it loads the kernels and
-    fills the lazy caches), its second captures the graph and runs it,
-    later calls replay it; the same kernels in the same order, so the
-    same bits. ``graph_captures`` and ``graph_replays`` count the calls
-    that captured a graph and those that replayed one an earlier call
-    captured. Every other path (CPU, unfused, host NMS, ``detect_batch``)
-    issues its launches eagerly.
-
-    Each graph owns a stage (``_Stage``): page-locked host buffers of its
-    static input's and output's shapes, allocated at its capture and
-    dropped with it. A graph's call copies the canvas into the stage's
-    input in one host pass (an f32 trunk's cast in the same pass); the
-    graph itself copies that to the card as its first node and its
-    result back into the stage's output as its last; the call then
-    synchronizes the stream and reads the stage. So the next write into a
-    stage's input comes after the last call's synchronize, with no copy in
-    flight over it, and no result aliases a stage (``_kept_rows`` and
-    ``_result`` copy what they keep). ``staged_calls`` counts the calls
-    whose frame went through a stage: each capture and each replay. The
-    eager calls (a key's first) upload and read back as the other paths
-    do.
-
-    A capture freezes the kernels that the
-    module functions in use at that moment launch (say
-    ``models.fused.fused_conv_dp``): a function put in their place later
-    does not reach a kept graph, so a call that must run another function
-    has to run eagerly (``_graph_key`` returning None) or on a new
-    Detector. The kernel wrappers' launch counters count the launches
-    their Python issues, eagerly or into a capture; a replay runs no
-    wrapper and adds nothing to them.
+    ``self.graphs`` (``eval/graphs.py``) runs ``detect``'s device-NMS
+    program, as a CUDA graph where it can; every other path is eager.
     """
 
     def __init__(self, cfg: Config, model_or_state=None, *, device,
@@ -214,34 +153,27 @@ class Detector:
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = dtype
-        self.scrfd = isinstance(cfg.model, SCRFDConfig)
-        if self.scrfd and folded is not None:
-            raise ValueError("a folded tree is YuNet's; give an SCRFD "
-                             "model or state dict")
+        self.arch = architecture(cfg.model)
+        if folded is not None and self.arch is not YuNet:
+            raise ValueError(f"a folded tree is YuNet's; give a "
+                             f"{self.arch.__name__} model or state dict")
         self.model = None
         self.folded = folded
         if folded is None:
             if isinstance(model_or_state, torch.nn.Module):
                 model = model_or_state.to(self.device)
             else:
-                model = (SCRFD if self.scrfd else YuNet)(
-                    cfg.model, device=self.device)
+                model = self.arch(cfg.model, device=self.device)
                 model.load_state_dict(model_or_state)
             self.model = model.eval()
             if fused:
-                self.folded = (fold_scrfd(model, dtype) if self.scrfd else
-                               fold_inference_params(model, cfg.model))
+                self.folded = model.fold(dtype)
         self._priors: Dict[Tuple[int, int], torch.Tensor] = {}
         # images whose device-NMS pre-NMS cap was saturated in the last
         # detect_batch(use_device_nms=True) call
         self.last_devnms_saturated = 0
         self.mesh = None
-        # detect's graph keys run once, eagerly, and the captured graphs
-        self._primed: "collections.OrderedDict[tuple, None]" = \
-            collections.OrderedDict()
-        self._graphs: "collections.OrderedDict[tuple, _Graph]" = \
-            collections.OrderedDict()
-        self.graph_captures = self.graph_replays = self.staged_calls = 0
+        self.graphs = Graphs(self.device, dtype, self.folded is not None)
 
     @property
     def mesh(self) -> Optional[Tuple[torch.device, ...]]:
@@ -274,10 +206,10 @@ class Detector:
         if (h, w) not in self._priors:
             # canvases are padded to a multiple of 32: division is exact
             m = self.cfg.model
-            self._priors[(h, w)] = torch.from_numpy(grid_priors(
-                [(h // s, w // s) for s in m.strides], m.strides,
-                m.prior_offset, num_anchors=m.num_anchors if self.scrfd
-                else 1)).to(self.device)
+            priors = grid_priors([(h // s, w // s) for s in m.strides],
+                                 m.strides, m.prior_offset,
+                                 num_anchors=self.arch.num_anchors(m))
+            self._priors[(h, w)] = torch.from_numpy(priors).to(self.device)
         return self._priors[(h, w)]
 
     @torch.inference_mode()
@@ -285,27 +217,17 @@ class Detector:
         """x: (B, H, W, 3) uint8 or float raw BGR on the device ->
         scores (B, P), boxes (B, P, 4), kps (B, P, 2K), all f32.
         conv_kernel: run a fused YuNet detector's units through the
-        kernel (an SCRFD trunk has no kernel of its own)."""
+        kernel."""
         with span("yunet.trunk"):
             xc = x.to(self.dtype).permute(0, 3, 1, 2)
             if self.folded is None:
                 flat = self.model.forward_flat(xc)
-            elif self.scrfd:
-                flat = scrfd_forward(self.folded, xc, self.cfg.model)
             else:
-                flat = flatten_level_outputs(fused_forward(
-                    self.folded, xc, self.cfg.model, use_kernel=conv_kernel))
+                flat = self.arch.forward_folded(
+                    self.folded, xc, self.cfg.model, use_kernel=conv_kernel)
         with span("yunet.decode"):
             priors = self.priors(x.shape[1], x.shape[2])
-            if self.scrfd:
-                scores = torch.sigmoid(flat["cls"][..., 0].float())
-                boxes = distance_decode(priors, flat["bbox"].float())
-            else:
-                scores = fuse_score(flat["cls"][..., 0].float(),
-                                    flat["obj"][..., 0].float())
-                boxes = bbox_decode(priors, flat["bbox"].float())
-            kps = kps_decode(priors, flat["kps"].float())
-        return scores, boxes, kps
+            return self.arch.decode(flat, priors)
 
     @torch.inference_mode()
     def detect_packed(self, x: torch.Tensor, top_k: int) -> torch.Tensor:
@@ -350,78 +272,6 @@ class Detector:
                 x = x.astype(np.float32)
             return torch.from_numpy(x).to(self.device)
 
-    # -- CUDA graphs of detect's device program ------------------------------
-    def _graph_key(self, det_img: np.ndarray, top_k: int) -> Optional[tuple]:
-        """The key of detect's device-NMS program for this canvas, or None
-        where that program is not graphed (not on a CUDA device, or no
-        folded tree: units outside the kernel)."""
-        if self.device.type != _GRAPH_DEVICE or self.folded is None:
-            return None
-        return (det_img.shape, det_img.dtype, self.dtype, top_k)
-
-    def _stage(self, key: tuple) -> _Stage:
-        """A primed key's stage: host tensors of the shapes and dtypes of
-        its eager call's input and output, page-locked on a CUDA device."""
-        pin = self.device.type == _GRAPH_DEVICE
-        return _Stage(*(torch.empty(shape, dtype=dtype, pin_memory=pin)
-                        for shape, dtype in self._primed[key]))
-
-    def _record(self, stage: _Stage, top_k: int):
-        """Capture as one CUDA graph, which runs nothing: the copy of the
-        stage's input into a new static input, ``detect_packed`` on it and
-        the copy of its output into the stage's -> (replay, static input,
-        static output)."""
-        x = torch.empty_like(stage.x, device=self.device)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            x.copy_(stage.x, non_blocking=True)
-            packed = self.detect_packed(x, top_k)
-            stage.packed.copy_(packed, non_blocking=True)
-        return graph.replay, x, packed
-
-    def _capture(self, key: tuple, stage: _Stage, top_k: int) -> _Graph:
-        """Capture key's program between the two halves of its stage and
-        keep it, the least recently used graph (and its stage) evicted
-        past ``_GRAPHS_KEPT``."""
-        graph = self._graphs[key] = _Graph(*self._record(stage, top_k),
-                                           stage)
-        del self._primed[key]
-        if len(self._graphs) > _GRAPHS_KEPT:
-            self._graphs.popitem(last=False)
-        self.graph_captures += 1
-        return graph
-
-    def _prime(self, key: tuple, x: torch.Tensor,
-               packed: torch.Tensor) -> None:
-        """Note key's first, eager call, on input x to output packed: its
-        next call captures, with a stage of their shapes and dtypes."""
-        self._primed[key] = ((x.shape, x.dtype), (packed.shape, packed.dtype))
-        if len(self._primed) > _GRAPHS_KEPT:
-            self._primed.popitem(last=False)
-
-    def _staged(self, key: tuple, graph: Optional[_Graph],
-                det_img: np.ndarray, top_k: int, lap) -> np.ndarray:
-        """A call of key's graph (captured here on key's second call): the
-        canvas into the stage, the graph's run, the stage's output ->
-        packed rows, a view of the stage that the next call overwrites."""
-        stage = self._stage(key) if graph is None else graph.stage
-        with span("yunet.upload"):
-            np.copyto(stage.x.numpy(), det_img, casting="unsafe")
-        lap("put")
-        if graph is None:
-            graph = self._capture(key, stage, top_k)
-        else:
-            self._graphs.move_to_end(key)
-            self.graph_replays += 1
-        with span("yunet.graph"):
-            graph.run()
-        self.staged_calls += 1
-        lap("dispatch")
-        with span("yunet.readback"):
-            if self.device.type == _GRAPH_DEVICE:
-                torch.cuda.current_stream(self.device).synchronize()
-            return stage.packed.numpy()
-
     def _check_thr(self, score_thr: float) -> None:
         if score_thr < self.cfg.test.score_thr:
             raise ValueError(
@@ -446,7 +296,7 @@ class Detector:
         seconds — {preproc, put, dispatch, device_readback, post}, read
         at the ends of the stage spans: yunet.letterbox; yunet.upload;
         yunet.trunk, yunet.decode and yunet.nms, or yunet.graph where a
-        CUDA graph replays them (the class doc); yunet.readback;
+        CUDA graph replays them (``eval/graphs.py``); yunet.readback;
         yunet.host_nms and yunet.result.
         ``dispatch`` ends when the device program has been queued,
         ``device_readback`` when its result is on the host: the device's
@@ -462,20 +312,9 @@ class Detector:
             lap("preproc")
             if use_device_nms:
                 self._check_thr(score_thr)
-                top_k = max_dets or self.cfg.test.device_nms_pre
-                key = self._graph_key(det_img, top_k)
-                graph = self._graphs.get(key)
-                if graph is None and key not in self._primed:
-                    x = self._input([det_img])       # eager: no graph yet
-                    lap("put")
-                    packed = self.detect_packed(x, top_k)
-                    if key is not None:
-                        self._prime(key, x, packed)
-                    lap("dispatch")
-                    with span("yunet.readback"):
-                        packed = packed.cpu().numpy()    # ONE readback
-                else:
-                    packed = self._staged(key, graph, det_img, top_k, lap)
+                packed = self.graphs.run(
+                    det_img, max_dets or self.cfg.test.device_nms_pre, lap,
+                    self._input, self.detect_packed)
                 lap("device_readback")
                 with span("yunet.result"):
                     out = _result(*_kept_rows(packed, score_thr), det_scale)

@@ -9,13 +9,15 @@ img_norm_cfg is the identity, configs/yunet_n.py:27).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..config import ModelConfig
+from ..ops.boxes import bbox_decode, fuse_score, kps_decode
 from .backbone import YuNetBackbone
+from .fused import fold_inference_params, fused_forward
 from .head import YuNetHead, flatten_level_outputs
 from .neck import TFPN
 
@@ -81,3 +83,24 @@ class YuNet(nn.Module):
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def fold(self, dtype: torch.dtype) -> Dict[str, Any]:
+        return fold_inference_params(self, self.cfg)   # f32 for any trunk
+
+    @staticmethod
+    def forward_folded(folded: Dict[str, Any], x: torch.Tensor,
+                       cfg: ModelConfig, *, use_kernel: bool
+                       ) -> Dict[str, torch.Tensor]:
+        return flatten_level_outputs(fused_forward(folded, x, cfg,
+                                                   use_kernel=use_kernel))
+
+    @staticmethod
+    def decode(flat: Dict[str, torch.Tensor], priors: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return (fuse_score(flat["cls"][..., 0].float(),
+                           flat["obj"][..., 0].float()),
+                bbox_decode(priors, flat["bbox"].float()),
+                kps_decode(priors, flat["kps"].float()))
+
+    @staticmethod
+    def num_anchors(cfg: ModelConfig) -> int:
+        return 1

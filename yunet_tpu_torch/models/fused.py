@@ -12,15 +12,17 @@ the public functions take and return NCHW like the model.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import TYPE_CHECKING, Any, Dict, List
 
 import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..ops.convdp import fused_conv_dp
-from .detector import YuNet
 from .layers import ConvDPUnit, library_conv2d
+
+if TYPE_CHECKING:
+    from .detector import YuNet
 
 
 @torch.no_grad()

@@ -71,10 +71,11 @@ class YuNetHead(nn.Module):
         return out
 
 
-def flatten_level_outputs(out: Dict[str, List[torch.Tensor]]
-                          ) -> Dict[str, torch.Tensor]:
-    """Per-level NCHW maps -> (B, total_priors, C) in the prior order:
-    row-major over (H, W) per level (reference yunet_head.py:331-349)."""
+def flatten_level_outputs(out: Dict[str, List[torch.Tensor]],
+                          num_anchors: int = 1) -> Dict[str, torch.Tensor]:
+    """Per-level NCHW maps of num_anchors * C channels -> (B, P, C), per
+    level row-major over (H, W), anchor-minor (yunet_head.py:331-349)."""
     return {k: torch.cat([m.permute(0, 2, 3, 1).reshape(
-                m.shape[0], -1, m.shape[1]) for m in maps], dim=1)
+                m.shape[0], -1, m.shape[1] // num_anchors) for m in maps],
+                dim=1)
             for k, maps in out.items()}

@@ -36,15 +36,17 @@ channels-last, every conv through ``scrfd_conv``, which counts them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import SCRFDConfig
+from ..ops.boxes import distance_decode, kps_decode
 from ..utils.profiling import span
 from .fused import fold_conv_bn
+from .head import flatten_level_outputs
 from .layers import _bn, batch_norm_eval
 
 INPUT_MEAN, INPUT_STD = 127.5, 128.0
@@ -208,17 +210,6 @@ class SCRFDHead(nn.Module):
         return {k: v for k, v in out.items() if v}
 
 
-def flatten_anchor_outputs(out: Dict[str, List[torch.Tensor]],
-                           num_anchors: int) -> Dict[str, torch.Tensor]:
-    """Per-level NCHW maps of num_anchors * C channels -> (B, P, C),
-    location-major and anchor-minor, level by level (SCRFD's export
-    order: the priors of ``grid_priors(..., num_anchors)``)."""
-    return {k: torch.cat([m.permute(0, 2, 3, 1).reshape(
-                m.shape[0], -1, m.shape[1] // num_anchors) for m in maps],
-                dim=1)
-            for k, maps in out.items()}
-
-
 class SCRFD(nn.Module):
     def __init__(self, cfg: SCRFDConfig, *, device):
         """Built on ``device`` with zero weights and identity BN, for a
@@ -251,11 +242,31 @@ class SCRFD(nn.Module):
             return self.bbox_head(feats)
 
     def forward_flat(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return flatten_anchor_outputs(self.forward(x), self.cfg.num_anchors)
+        return flatten_level_outputs(self.forward(x), self.cfg.num_anchors)
 
     @property
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def fold(self, dtype: torch.dtype) -> Dict[str, object]:
+        return fold_scrfd(self, dtype)
+
+    @staticmethod
+    def forward_folded(folded: Dict[str, object], x: torch.Tensor,
+                       cfg: SCRFDConfig, *, use_kernel: bool
+                       ) -> Dict[str, torch.Tensor]:
+        return scrfd_forward(folded, x, cfg)      # no kernel of its own
+
+    @staticmethod
+    def decode(flat: Dict[str, torch.Tensor], priors: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return (torch.sigmoid(flat["cls"][..., 0].float()),
+                distance_decode(priors, flat["bbox"].float()),
+                kps_decode(priors, flat["kps"].float()))
+
+    @staticmethod
+    def num_anchors(cfg: SCRFDConfig) -> int:
+        return cfg.num_anchors
 
 
 # -- the folded trunk -----------------------------------------------------------
@@ -375,4 +386,4 @@ def scrfd_forward(folded: Dict[str, object], x: torch.Tensor,
             for key in ("cls", "bbox", "kps"):
                 if key in d:
                     out.setdefault(key, []).append(scrfd_conv(f, d[key]))
-        return flatten_anchor_outputs(out, cfg.num_anchors)
+        return flatten_level_outputs(out, cfg.num_anchors)

@@ -92,11 +92,9 @@ def count_macs(cfg: ModelConfig | SCRFDConfig,
 
 
 def count_params(cfg: ModelConfig | SCRFDConfig) -> int:
-    from ..models.detector import YuNet
-    from ..models.scrfd import SCRFD
+    from ..models import architecture
     # on the meta device: shapes only, no parameter memory
-    model = SCRFD if isinstance(cfg, SCRFDConfig) else YuNet
-    return model(cfg, device="meta").num_params
+    return architecture(cfg)(cfg, device="meta").num_params
 
 
 class Conv(NamedTuple):
