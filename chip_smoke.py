@@ -291,12 +291,13 @@ def phase_build(libs=None):
     at once, one compiler process each."""
     from concurrent.futures import ThreadPoolExecutor
     from yunet_tpu_torch import native
-    from yunet_tpu_torch.ops import (convdp, convdp_cm, convdp_train, nms,
-                                     simota)
+    from yunet_tpu_torch.ops import (conv_epi, convdp, convdp_cm,
+                                     convdp_train, nms, simota)
     libs = libs or {"convdp.cu": convdp.LIB, "nms.cu": nms.LIB,
                     "simota.cu": simota.LIB,
                     "convdp_bwd.cu": convdp_train.LIB,
                     "convdp_cm.cu": convdp_cm.LIB,
+                    "scrfd_conv.cu": conv_epi.LIB,
                     "host_nms.cpp": native.LIB}
 
     def build(lib):
@@ -1273,9 +1274,14 @@ def graph_only():
 SCRFD_WEIGHTS = os.path.join(ROOT, "portbench", "weights",
                              "scrfd_10g_bnkps.npz")
 SCRFD_CONVS = 58                   # the folded forward's convs a detect
-# the kernels that run a conv, by their names in an H100 trace: cuDNN's
-# implicit-GEMM forward convolutions, and the cuBLAS GEMMs of 1x1 convs
+# of which add a shortcut in their epilogue (12 BasicBlocks, 2 bottom-up
+# and 2 top-down FPN adds) and end in a ReLU
+SCRFD_RESIDUALS, SCRFD_RELUS = 16, 36
+# the kernels that run a conv, by their names in an H100 trace: the
+# port's (csrc/scrfd_conv.cu), cuDNN's implicit-GEMM forward convolutions,
+# and the cuBLAS GEMMs of 1x1 convs
 CONV_KERNELS = ("fprop", "nvjet")
+SCRFD_KERNEL = "scrfd_fprop_kernel"
 
 
 def _scrfd_detector():
@@ -1297,10 +1303,14 @@ def _scrfd_detector():
 def _scrfd_kernels(det, img, calls=20):
     """The kernels of ``calls`` replayed SCRFD detects in a torch.profiler
     trace, a call: every kernel, the conv kernels (CONV_KERNELS) and
-    their time, cuDNN's channel padding (``nhwcAddPaddingKernel``),
-    nms.cu's mask and scan, and the conv kernels' names with their counts
-    over the calls. Raises unless every call replayed and ran at least
-    SCRFD_CONVS conv kernels and one of each NMS kernel."""
+    their time, those of csrc/scrfd_conv.cu, the library's (any other
+    conv kernel), cuDNN's channel padding (``nhwcAddPaddingKernel``),
+    PyTorch's non-vectorized elementwise kernels (the library route's
+    bias adds ran there), nms.cu's mask and scan, and the conv kernels'
+    names with their counts over the calls. Raises unless every call
+    replayed and ran SCRFD_CONVS conv kernels, all the port's, no padding
+    kernel, fewer elementwise kernels than the library route's bias adds,
+    and one of each NMS kernel."""
     import collections
     import tempfile
     import torch
@@ -1324,18 +1334,162 @@ def _scrfd_kernels(det, img, calls=20):
            "conv": sum(is_conv) / calls,
            "conv_us": sum(e["dur"] for e, c in zip(events, is_conv) if c)
            / calls,
+           "scrfd_fprop": sum(SCRFD_KERNEL in n for n in names) / calls,
+           "library_conv": sum(c and SCRFD_KERNEL not in n
+                               for n, c in zip(names, is_conv)) / calls,
            "padding": sum("nhwcAddPaddingKernel" in n for n in names)
            / calls,
+           "elementwise": sum("at::native::elementwise_kernel" in n
+                              for n in names) / calls,
            "nms_mask_kernel": sum("nms_mask_kernel" in n
                                   for n in names) / calls,
            "nms_scan_kernel": sum("nms_scan_kernel" in n
                                   for n in names) / calls,
            "conv_names": {n[:160]: c for n, c in convs.most_common()}}
-    if det.graphs.replays - replays != calls or got["conv"] < SCRFD_CONVS \
+    if det.graphs.replays - replays != calls \
+            or got["conv"] != SCRFD_CONVS \
+            or got["scrfd_fprop"] != SCRFD_CONVS or got["library_conv"] \
+            or got["padding"] or got["elementwise"] >= SCRFD_CONVS \
             or got["nms_mask_kernel"] != 1 or got["nms_scan_kernel"] != 1:
         raise AssertionError(f"scrfd: {det.graphs.replays - replays} "
                              f"replays of {calls}; kernels a call {got}")
     return got
+
+
+def _scrfd_conv_calls(det, img):
+    """The SCRFD_CONVS convs of one eager bf16 trunk on ``img``'s canvas,
+    as scrfd_forward issues them through csrc/scrfd_conv.cu: (x, folded
+    conv, residual, upsample, the kernel's output)."""
+    import torch
+    from yunet_tpu_torch.eval.detect import resize_img
+    from yunet_tpu_torch.models import scrfd as scrfd_module
+    real, calls = scrfd_module.scrfd_conv, []
+
+    def record(x, c, residual=None, upsample=1):
+        out = real(x, c, residual, upsample)
+        calls.append((x, c, residual, upsample, out))
+        return out
+
+    record.launches = 0         # scrfd_conv counts itself by its name
+    canvas = resize_img(img, "AUTO")[0]
+    x = torch.from_numpy(canvas).to(DEV)[None].to(det.dtype)
+    scrfd_module.scrfd_conv = record
+    try:
+        with torch.inference_mode():
+            scrfd_module.scrfd_forward(det.folded, x.permute(0, 3, 1, 2),
+                                       det.cfg.model)
+        torch.cuda.synchronize()
+    finally:
+        scrfd_module.scrfd_conv = real
+    return calls
+
+
+def _scrfd_conv_check(det, img):
+    """Each of the SCRFD_CONVS convs of a 640x640 detect, kernel against
+    plain on the card. The reference is the plain version in f32 on the
+    kernel's bf16 inputs (TF32 off): exact products, f32 sums. The kernel
+    sums in f32 too and rounds once to bf16, so it must lie within one bf16
+    rounding of the reference, 2^-8 of |ref|, plus 2^-16 of the conv's
+    largest |ref| for the sums' other order where an output cancels to
+    near zero: 'err' is the largest |kernel - ref| over that tolerance and
+    must stay <= 1. The plain version in bf16 (the library route: the conv,
+    the shortcut add and the ReLU each rounded) is read against the same
+    tolerance for comparison. Then the wrapper must refuse a non-bf16 and
+    a non-channels-last CUDA input. Returns the per-conv errors and the
+    inputs, for timing."""
+    import torch
+    from yunet_tpu_torch.ops.conv_epi import conv_epi, conv_epi_plain
+    calls = _scrfd_conv_calls(det, img)
+    residuals = sum(r is not None for _, _, r, _, _ in calls)
+    relus = sum(c.relu for _, c, *_ in calls)
+    if (len(calls), residuals, relus) != (SCRFD_CONVS, SCRFD_RESIDUALS,
+                                          SCRFD_RELUS):
+        raise AssertionError(f"scrfd: {len(calls)} convs, {residuals} with "
+                             f"a shortcut, {relus} with a ReLU")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    errs = []
+    try:
+        with torch.inference_mode():
+            for x, c, res, up, out in calls:
+                kw = dict(stride=c.stride, relu=c.relu, upsample=up)
+                ref = conv_epi_plain(x.float(), c.w.float(), c.b,
+                                     residual=None if res is None
+                                     else res.float(), **kw)
+                plain = conv_epi_plain(x, c.w, c.b, residual=res, **kw)
+                tol = 2.0 ** -8 * ref.abs() + 2.0 ** -16 * ref.abs().max()
+                errs.append((float(((out.float() - ref).abs() / tol).max()),
+                             float(((plain.float() - ref).abs()
+                                    / tol).max())))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    worst = max(e for e, _ in errs)
+    if worst > 1.0:
+        raise AssertionError(f"scrfd conv: kernel off its reference by "
+                             f"{worst} of the tolerance; per conv {errs}")
+    x, c, *_ = calls[1]
+    for bad, what in ((x.float(), "f32"), (x.contiguous(), "NCHW")):
+        try:
+            conv_epi(bad, c.w, c.wp, c.b, stride=c.stride, relu=c.relu)
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError(f"conv_epi took a {what} CUDA input")
+    return errs, calls
+
+
+def _scrfd_conv_times(calls, cfg):
+    """ms for the SCRFD_CONVS convs issued back to back, each set captured
+    as one CUDA graph and replayed: the kernel, its plain version (the
+    library route: cuDNN's conv with its bias, then the shortcut add, the
+    upsample and the ReLU as passes of their own) and the one library call
+    that computes a plain conv with its bias, F.conv2d, with a ReLU where
+    the conv has one; and the least time for the convs on an H100, conv by
+    conv (utils/flops.scrfd_convs, bf16 bytes once, 2 x the multiply-adds
+    at BF16_FLOPS)."""
+    import torch
+    import torch.nn.functional as F
+    from yunet_tpu_torch.ops.conv_epi import conv_epi, conv_epi_plain
+    from yunet_tpu_torch.utils import flops
+
+    def kernel():
+        for x, c, res, up, _ in calls:
+            conv_epi(x, c.w, c.wp, c.b, stride=c.stride, relu=c.relu,
+                     residual=res, upsample=up)
+
+    def plain():
+        for x, c, res, up, _ in calls:
+            conv_epi_plain(x, c.w, c.b, stride=c.stride, relu=c.relu,
+                           residual=res, upsample=up)
+
+    def library():
+        for x, c, *_ in calls:
+            y = F.conv2d(x, c.w, c.b.to(x.dtype), c.stride,
+                         c.w.shape[-1] // 2)
+            if c.relu:
+                y.relu_()
+
+    times = {}
+    with torch.inference_mode():
+        for name, fn in (("kernel", kernel), ("plain", plain),
+                         ("library", library)):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                fn()
+            times[name] = round(cuda_ms(graph.replay, iters=20), 4)
+            del graph
+    bound = 0.0
+    for cv in flops.scrfd_convs(cfg.model, 640, 640):
+        oh, ow = cv.out
+        act = cv.h * cv.w * cv.cin + oh * ow * cv.cout
+        wts = cv.cout * cv.cin * cv.k * cv.k + cv.cout
+        bound += bound_ms(2 * (act + wts), 2 * cv.macs, BF16_FLOPS)[0]
+    times["bound"] = round(bound, 5)
+    return times
 
 
 def phase_scrfd():
@@ -1347,14 +1501,29 @@ def phase_scrfd():
     58 for the capture, none for the replay, with K3's 2, 2, 0; a
     profiler trace of replayed calls with the conv kernels and one NMS
     mask and scan a call; the host's wall a detect, graphed and eager in
-    turns."""
+    turns. Before those, each of the SCRFD_CONVS convs of a detect through
+    csrc/scrfd_conv.cu against its plain version (_scrfd_conv_check), the
+    wrapper's refusals, and the convs' time through the kernel, the plain
+    version and the library (_scrfd_conv_times); the counters of
+    ``conv_epi`` (launches, those with a shortcut, those with a ReLU) read
+    58, 16, 36 for the eager call and the capture and 0 for the replay."""
     import torch
     from yunet_tpu_torch.models.scrfd import scrfd_conv
+    from yunet_tpu_torch.ops.conv_epi import conv_epi
     cfg, det = _scrfd_detector()
     top_k = cfg.test.device_nms_pre
     rng = np.random.RandomState(21)
     imgs = [face_image(rng, 640, 640, rng.randint(2, 12))
             for _ in range(GRAPH_CALLS)]
+    conv_errs, conv_calls = _scrfd_conv_check(det, imgs[0])
+    conv_times = _scrfd_conv_times(conv_calls, cfg)
+    del conv_calls
+    log(f"[scrfd] the {SCRFD_CONVS} convs through csrc/scrfd_conv.cu "
+        f"against their plain version in f32: largest error "
+        f"{max(e for e, _ in conv_errs):.3f} of the tolerance (the plain "
+        f"version in bf16 reads {max(e for _, e in conv_errs):.3f}); "
+        f"non-bf16 and non-channels-last inputs refused; ms for the "
+        f"{SCRFD_CONVS} convs, graphed: {conv_times}")
     graphed, walls = _graph_run(det, imgs, top_k)
     reps = GRAPH_CALLS - 2
     if (det.graphs.captures, det.graphs.replays, graphed) != (1, reps,
@@ -1366,16 +1535,22 @@ def phase_scrfd():
     counts = []
     for img in imgs[:3]:
         reset_launch_counts()
-        before = scrfd_conv.launches
+        before = (scrfd_conv.launches, conv_epi.launches,
+                  conv_epi.launches_residual, conv_epi.launches_relu)
         fresh.detect(img, use_device_nms=True)
         torch.cuda.synchronize()
-        counts.append((scrfd_conv.launches - before,
-                       launch_counts()["greedy_nms"]))
-    want = [(SCRFD_CONVS, 2), (SCRFD_CONVS, 2), (0, 0)]
+        counts.append((scrfd_conv.launches - before[0],
+                       launch_counts()["greedy_nms"],
+                       conv_epi.launches - before[1],
+                       conv_epi.launches_residual - before[2],
+                       conv_epi.launches_relu - before[3]))
+    once = (SCRFD_CONVS, 2, SCRFD_CONVS, SCRFD_RESIDUALS, SCRFD_RELUS)
+    want = [once, once, (0, 0, 0, 0, 0)]
     if counts != want or (fresh.graphs.captures,
                           fresh.graphs.replays) != (1, 1):
-        raise AssertionError(f"scrfd: counted (convs, K3) a call {counts}, "
-                             f"want {want}")
+        raise AssertionError(f"scrfd: counted (convs, K3, conv_epi "
+                             f"launches, with a shortcut, with a ReLU) a "
+                             f"call {counts}, want {want}")
     del fresh
     kernels = _scrfd_kernels(det, imgs[0])
     wall = {}
@@ -1393,11 +1568,15 @@ def phase_scrfd():
                            "capture": round(walls[1], 3),
                            "replay_median": round(statistics.median(
                                walls[2:]), 3)},
-              "counted_convs_k3": counts, "kernels_a_call": kernels,
+              "counted_convs_k3_epilogue": counts,
+              "conv_errors_of_tolerance": [round(e, 4) for e, _ in
+                                           conv_errs],
+              "conv_ms_58": conv_times, "kernels_a_call": kernels,
               "wall_ms": wall}
     log(f"[scrfd] {GRAPH_CALLS} detects at 640x640 == the eager program "
-        f"bit for bit; 1 capture, {reps} replays; counted (convs, K3) of "
-        f"an eager call, a capture, a replay {counts}; a replayed call "
+        f"bit for bit; 1 capture, {reps} replays; counted (convs, K3, "
+        f"conv_epi launches, with a shortcut, with a ReLU) of an eager "
+        f"call, a capture, a replay {counts}; a replayed call "
         f"in the profiler's trace {kernels}; detect wall ms, median of 200 "
         f"(graph, eager, eager, graph in turns): {wall}")
     return report
@@ -1405,14 +1584,15 @@ def phase_scrfd():
 
 def scrfd_only():
     """phase_scrfd alone: python3 -c "import chip_smoke as s;
-    s.scrfd_only()" from the repository root. Builds nms.cu."""
+    s.scrfd_only()" from the repository root. Builds nms.cu and
+    scrfd_conv.cu."""
     import torch
-    from yunet_tpu_torch.ops import nms
+    from yunet_tpu_torch.ops import conv_epi, nms
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     smi = nvidia_smi_line()
     log(f"[device] {torch.cuda.get_device_name(0)} | {smi}")
-    phase_build({"nms.cu": nms.LIB})
+    phase_build({"nms.cu": nms.LIB, "scrfd_conv.cu": conv_epi.LIB})
     log(f"[scrfd] {smi}: " + json.dumps(phase_scrfd()))
 
 

@@ -30,7 +30,9 @@ state dict loads as it is.
 Every conv runs in the input's dtype and BatchNorm in f32 (as YuNet's
 ``layers.py`` does). ``fold_scrfd`` folds BN and the Scale into the convs
 for ``scrfd_forward``, the detect path's trunk: bf16 (or f32),
-channels-last, every conv through ``scrfd_conv``, which counts them.
+channels-last, every conv through ``scrfd_conv``, which counts them. A
+conv takes its bias, the shortcut or FPN add it feeds and its ReLU in one
+call (``ops/conv_epi.py``: in bf16 on the card, one kernel's epilogue).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch.nn.functional as F
 
 from ..config import SCRFDConfig
 from ..ops.boxes import distance_decode, kps_decode
+from ..ops.conv_epi import conv_epi, conv_epi_plain, pack_weights
 from ..utils.profiling import span
 from .fused import fold_conv_bn
 from .head import flatten_level_outputs
@@ -274,10 +277,13 @@ class SCRFD(nn.Module):
 @dataclass
 class FoldedConv:
     """One conv with BN (and the reg branch's Scale) folded in: w OIHW
-    channels-last and b in the trunk's dtype, its stride and whether a
-    ReLU follows it."""
+    channels-last in the trunk's dtype, for the plain version; wp the same
+    weights packed once for the kernel (``ops/conv_epi.py:pack_weights``,
+    bf16); b in f32; its stride and whether a ReLU ends it (after the
+    shortcut's add, where the conv takes one)."""
 
     w: torch.Tensor
+    wp: torch.Tensor
     b: torch.Tensor
     stride: int
     relu: bool
@@ -296,7 +302,8 @@ def _fold(conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d], dtype, *,
         w, b = w * scale, b * scale
     return FoldedConv(
         w=w.float().to(dtype).contiguous(memory_format=torch.channels_last),
-        b=b.float().to(dtype).clone(), stride=conv.stride[0], relu=relu)
+        wp=pack_weights(w), b=b.float().contiguous(),
+        stride=conv.stride[0], relu=relu)
 
 
 @torch.no_grad()
@@ -315,7 +322,8 @@ def fold_scrfd(model: SCRFD, dtype: torch.dtype = torch.float32
         _fold(stem[6], stem[7], dtype, relu=True)]}
     out["layers"] = [[{
         "conv1": _fold(blk.conv1, blk.bn1, dtype, relu=True),
-        "conv2": _fold(blk.conv2, blk.bn2, dtype, relu=False),
+        # the ReLU after the shortcut's add, in conv2's epilogue
+        "conv2": _fold(blk.conv2, blk.bn2, dtype, relu=True),
         "down": None if blk.downsample is None else _fold(
             blk.downsample[1], blk.downsample[2], dtype, relu=False)}
         for blk in getattr(bb, f"layer{i + 1}")]
@@ -335,12 +343,20 @@ def fold_scrfd(model: SCRFD, dtype: torch.dtype = torch.float32
     return out
 
 
-def scrfd_conv(x: torch.Tensor, c: FoldedConv) -> torch.Tensor:
-    """One folded conv (padding k // 2) and its ReLU; counts itself in
-    ``scrfd_conv.launches``, eagerly or into a CUDA graph's capture."""
+def scrfd_conv(x: torch.Tensor, c: FoldedConv,
+               residual: Optional[torch.Tensor] = None,
+               upsample: int = 1) -> torch.Tensor:
+    """One folded conv (padding k // 2), + residual (at the output's
+    resolution, or at 1 / upsample of it, repeated nearest), then its
+    ReLU: the kernel of ``ops/conv_epi.py`` for bf16 on the card, the
+    plain version otherwise. Counts itself in ``scrfd_conv.launches``,
+    eagerly or into a CUDA graph's capture."""
     scrfd_conv.launches += 1
-    y = F.conv2d(x, c.w, c.b, c.stride, c.w.shape[-1] // 2)
-    return y.relu_() if c.relu else y
+    kw = dict(stride=c.stride, relu=c.relu, residual=residual,
+              upsample=upsample)
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return conv_epi(x, c.w, c.wp, c.b, **kw)
+    return conv_epi_plain(x, c.w, c.b, **kw)
 
 
 scrfd_conv.launches = 0
@@ -359,23 +375,23 @@ def scrfd_forward(folded: Dict[str, object], x: torch.Tensor,
         feats = []
         for stage in folded["layers"]:
             for blk in stage:
-                z = scrfd_conv(scrfd_conv(y, blk["conv1"]), blk["conv2"])
-                if blk["down"] is not None:
-                    y = scrfd_conv(F.avg_pool2d(
-                        y, 2, 2, ceil_mode=True, count_include_pad=False),
-                        blk["down"])
-                y = z.add_(y).relu_()
+                short = y if blk["down"] is None else scrfd_conv(
+                    F.avg_pool2d(y, 2, 2, ceil_mode=True,
+                                 count_include_pad=False), blk["down"])
+                y = scrfd_conv(scrfd_conv(y, blk["conv1"]), blk["conv2"],
+                               residual=short)
             feats.append(y)
     with span("scrfd.neck"):
         neck = folded["neck"]
-        lat = [scrfd_conv(f, c) for c, f in
-               zip(neck["lateral"], feats[cfg.neck_start_level:])]
-        for i in range(len(lat) - 1, 0, -1):
-            lat[i - 1] = lat[i - 1] + F.interpolate(
-                lat[i], size=lat[i - 1].shape[2:], mode="nearest")
+        # top-down: the coarsest lateral first, each finer one adding the
+        # one above it, upsampled 2x, in its epilogue
+        ins = feats[cfg.neck_start_level:]
+        lat = [scrfd_conv(ins[-1], neck["lateral"][-1])]
+        for f, c in zip(ins[-2::-1], neck["lateral"][-2::-1]):
+            lat.insert(0, scrfd_conv(f, c, residual=lat[0], upsample=2))
         inter = [scrfd_conv(f, c) for c, f in zip(neck["fpn"], lat)]
         for i, c in enumerate(neck["downsample"]):
-            inter[i + 1] = inter[i + 1] + scrfd_conv(inter[i], c)
+            inter[i + 1] = scrfd_conv(inter[i], c, residual=inter[i + 1])
         feats = [inter[0]] + [scrfd_conv(f, c) for c, f in
                               zip(neck["pafpn"], inter[1:])]
     with span("scrfd.head"):
