@@ -1300,17 +1300,17 @@ def _scrfd_detector():
     return cfg, Detector(cfg, sd, device=DEV, fused=True)
 
 
-def _scrfd_kernels(det, img, calls=20):
-    """The kernels of ``calls`` replayed SCRFD detects in a torch.profiler
-    trace, a call: every kernel, the conv kernels (CONV_KERNELS) and
-    their time, those of csrc/scrfd_conv.cu, the library's (any other
-    conv kernel), cuDNN's channel padding (``nhwcAddPaddingKernel``),
-    PyTorch's non-vectorized elementwise kernels (the library route's
-    bias adds ran there), nms.cu's mask and scan, and the conv kernels'
-    names with their counts over the calls. Raises unless every call
-    replayed and ran SCRFD_CONVS conv kernels, all the port's, no padding
-    kernel, fewer elementwise kernels than the library route's bias adds,
-    and one of each NMS kernel."""
+def _replay_kernels(det, img, label, want, calls=20):
+    """The kernels of ``calls`` replayed detects of a conv family's
+    Detector in a torch.profiler trace, a call: every kernel, the conv
+    kernels (CONV_KERNELS) and their time, those of csrc/scrfd_conv.cu,
+    the library's (any other conv kernel), cuDNN's channel padding
+    (``nhwcAddPaddingKernel``), PyTorch's non-vectorized elementwise
+    kernels (the library route's bias adds ran there), the concatenations
+    and adds of bf16 maps, the ReLUs, nms.cu's mask and scan, and every
+    kernel's name with its count over the calls. Raises unless every call
+    replayed and each count that ``want`` names equals its value there
+    (passes it, for a callable)."""
     import collections
     import tempfile
     import torch
@@ -1322,101 +1322,116 @@ def _scrfd_kernels(det, img, calls=20):
             det.detect(img, use_device_nms=True)
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "scrfd.json")
+        path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = [e for e in json.load(f)["traceEvents"]
                       if e.get("cat") == "kernel"]
     names = [e.get("name", "") for e in events]
     is_conv = [any(k in n for k in CONV_KERNELS) for n in names]
-    convs = collections.Counter(n for n, c in zip(names, is_conv) if c)
+    count = lambda *keys: sum(any(k in n for k in keys)
+                              for n in names) / calls
     got = {"kernels": len(names) / calls,
            "conv": sum(is_conv) / calls,
            "conv_us": sum(e["dur"] for e, c in zip(events, is_conv) if c)
            / calls,
-           "scrfd_fprop": sum(SCRFD_KERNEL in n for n in names) / calls,
+           "scrfd_fprop": count(SCRFD_KERNEL),
            "library_conv": sum(c and SCRFD_KERNEL not in n
                                for n, c in zip(names, is_conv)) / calls,
-           "padding": sum("nhwcAddPaddingKernel" in n for n in names)
-           / calls,
-           "elementwise": sum("at::native::elementwise_kernel" in n
-                              for n in names) / calls,
-           "nms_mask_kernel": sum("nms_mask_kernel" in n
-                                  for n in names) / calls,
-           "nms_scan_kernel": sum("nms_scan_kernel" in n
-                                  for n in names) / calls,
-           "conv_names": {n[:160]: c for n, c in convs.most_common()}}
-    if det.graphs.replays - replays != calls \
-            or got["conv"] != SCRFD_CONVS \
-            or got["scrfd_fprop"] != SCRFD_CONVS or got["library_conv"] \
-            or got["padding"] or got["elementwise"] >= SCRFD_CONVS \
-            or got["nms_mask_kernel"] != 1 or got["nms_scan_kernel"] != 1:
-        raise AssertionError(f"scrfd: {det.graphs.replays - replays} "
-                             f"replays of {calls}; kernels a call {got}")
+           "padding": count("nhwcAddPaddingKernel"),
+           "elementwise": count("at::native::elementwise_kernel"),
+           "cat_bf16": sum("CatArray" in n and "OpaqueType<2u>" in n
+                           for n in names) / calls,
+           "add_bf16": count("CUDAFunctor_add<c10::BFloat16>"),
+           "relu": count("threshold", "clamp_min", "relu"),
+           "nms_mask_kernel": count("nms_mask_kernel"),
+           "nms_scan_kernel": count("nms_scan_kernel"),
+           "names": {n[:200]: c for n, c in collections.Counter(
+               names).most_common()}}
+    off = {k: got[k] for k, v in want.items()
+           if not (v(got[k]) if callable(v) else got[k] == v)}
+    if det.graphs.replays - replays != calls or off:
+        raise AssertionError(f"{label}: {det.graphs.replays - replays} "
+                             f"replays of {calls}; off {off}; kernels a "
+                             f"call {got}")
     return got
 
 
-def _scrfd_conv_calls(det, img):
-    """The SCRFD_CONVS convs of one eager bf16 trunk on ``img``'s canvas,
-    as scrfd_forward issues them through csrc/scrfd_conv.cu: (x, folded
-    conv, residual, upsample, the kernel's output)."""
+def _conv_calls(det, img, module, conv, forward):
+    """The convs of one eager bf16 trunk on ``img``'s canvas, as
+    ``module``'s ``forward`` issues them through its ``conv`` function
+    (SCRFD's ``scrfd_conv``, RetinaFace's ``retinaface_conv``) and
+    csrc/scrfd_conv.cu: (x, folded conv, the other arguments it got by
+    name, the kernel's output)."""
     import torch
     from yunet_tpu_torch.eval.detect import resize_img
-    from yunet_tpu_torch.models import scrfd as scrfd_module
-    real, calls = scrfd_module.scrfd_conv, []
+    real, calls = getattr(module, conv), []
 
-    def record(x, c, residual=None, upsample=1):
-        out = real(x, c, residual, upsample)
-        calls.append((x, c, residual, upsample, out))
+    def record(x, c, residual=None, upsample=1, **kw):
+        out = real(x, c, residual, upsample, **kw)
+        calls.append((x, c, dict(kw, residual=residual, upsample=upsample),
+                      out))
         return out
 
-    record.launches = 0         # scrfd_conv counts itself by its name
+    record.launches = 0         # the conv function counts itself by name
     canvas = resize_img(img, "AUTO")[0]
     x = torch.from_numpy(canvas).to(DEV)[None].to(det.dtype)
-    scrfd_module.scrfd_conv = record
+    setattr(module, conv, record)
     try:
         with torch.inference_mode():
-            scrfd_module.scrfd_forward(det.folded, x.permute(0, 3, 1, 2),
-                                       det.cfg.model)
+            getattr(module, forward)(det.folded, x.permute(0, 3, 1, 2),
+                                     det.cfg.model)
         torch.cuda.synchronize()
     finally:
-        scrfd_module.scrfd_conv = real
+        setattr(module, conv, real)
     return calls
 
 
-def _scrfd_conv_check(det, img):
-    """Each of the SCRFD_CONVS convs of a 640x640 detect, kernel against
-    plain on the card. The reference is the plain version in f32 on the
-    kernel's bf16 inputs (TF32 off): exact products, f32 sums. The kernel
-    sums in f32 too and rounds once to bf16, so it must lie within one bf16
-    rounding of the reference, 2^-8 of |ref|, plus 2^-16 of the conv's
-    largest |ref| for the sums' other order where an output cancels to
-    near zero: 'err' is the largest |kernel - ref| over that tolerance and
-    must stay <= 1. The plain version in bf16 (the library route: the conv,
-    the shortcut add and the ReLU each rounded) is read against the same
-    tolerance for comparison. Then the wrapper must refuse a non-bf16 and
-    a non-channels-last CUDA input. Returns the per-conv errors and the
-    inputs, for timing."""
+def _epi_args(c, kw):
+    """conv_epi's arguments past (x, w, wp, b) for a recorded call."""
+    return dict(stride=c.stride, relu=c.relu, residual=kw["residual"],
+                upsample=kw["upsample"], post_add=kw.get("post_add", False),
+                out=kw.get("out"))
+
+
+def _conv_check(calls, label, **want):
+    """Each conv of ``calls`` (``_conv_calls``), kernel against plain on
+    the card, after the calls' counts that ``want`` names (``convs``;
+    those with a shortcut, ``residual``; with a ReLU, ``relu``; adding the
+    shortcut after the ReLU, ``post_add``; into a slice, ``sliced``). The
+    reference is the plain version in f32 on the kernel's bf16 inputs
+    (TF32 off): exact products, f32 sums. The kernel sums in f32 too and
+    rounds once to bf16, so it must lie within one bf16 rounding of the
+    reference, 2^-8 of |ref|, plus 2^-16 of the conv's largest |ref| for
+    the sums' other order where an output cancels to near zero: 'err' is
+    the largest |kernel - ref| over that tolerance and must stay <= 1. The
+    plain version in bf16 (the library route: the conv, the shortcut add
+    and the ReLU each rounded) is read against the same tolerance for
+    comparison. Then the wrapper must refuse a non-bf16 and a
+    non-channels-last CUDA input. Returns the per-conv errors."""
     import torch
     from yunet_tpu_torch.ops.conv_epi import conv_epi, conv_epi_plain
-    calls = _scrfd_conv_calls(det, img)
-    residuals = sum(r is not None for _, _, r, _, _ in calls)
-    relus = sum(c.relu for _, c, *_ in calls)
-    if (len(calls), residuals, relus) != (SCRFD_CONVS, SCRFD_RESIDUALS,
-                                          SCRFD_RELUS):
-        raise AssertionError(f"scrfd: {len(calls)} convs, {residuals} with "
-                             f"a shortcut, {relus} with a ReLU")
+    counts = {"convs": len(calls),
+              "residual": sum(kw["residual"] is not None
+                              for *_, kw, _ in calls),
+              "relu": sum(c.relu for _, c, *_ in calls),
+              "post_add": sum(bool(kw.get("post_add"))
+                              for *_, kw, _ in calls),
+              "sliced": sum(kw.get("out") is not None for *_, kw, _ in calls)}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: counted {counts}, want {want}")
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     errs = []
     try:
         with torch.inference_mode():
-            for x, c, res, up, out in calls:
-                kw = dict(stride=c.stride, relu=c.relu, upsample=up)
+            for x, c, kw, out in calls:
+                args = _epi_args(c, kw)
+                res, _ = args.pop("residual"), args.pop("out")
                 ref = conv_epi_plain(x.float(), c.w.float(), c.b,
                                      residual=None if res is None
-                                     else res.float(), **kw)
-                plain = conv_epi_plain(x, c.w, c.b, residual=res, **kw)
+                                     else res.float(), **args)
+                plain = conv_epi_plain(x, c.w, c.b, residual=res, **args)
                 tol = 2.0 ** -8 * ref.abs() + 2.0 ** -16 * ref.abs().max()
                 errs.append((float(((out.float() - ref).abs() / tol).max()),
                              float(((plain.float() - ref).abs()
@@ -1425,7 +1440,7 @@ def _scrfd_conv_check(det, img):
         torch.backends.cudnn.allow_tf32 = tf32
     worst = max(e for e, _ in errs)
     if worst > 1.0:
-        raise AssertionError(f"scrfd conv: kernel off its reference by "
+        raise AssertionError(f"{label} conv: kernel off its reference by "
                              f"{worst} of the tolerance; per conv {errs}")
     x, c, *_ = calls[1]
     for bad, what in ((x.float(), "f32"), (x.contiguous(), "NCHW")):
@@ -1434,32 +1449,40 @@ def _scrfd_conv_check(det, img):
         except (TypeError, ValueError):
             continue
         raise AssertionError(f"conv_epi took a {what} CUDA input")
-    return errs, calls
+    return errs
 
 
-def _scrfd_conv_times(calls, cfg):
-    """ms for the SCRFD_CONVS convs issued back to back, each set captured
-    as one CUDA graph and replayed: the kernel, its plain version (the
-    library route: cuDNN's conv with its bias, then the shortcut add, the
-    upsample and the ReLU as passes of their own) and the one library call
-    that computes a plain conv with its bias, F.conv2d, with a ReLU where
-    the conv has one; and the least time for the convs on an H100, conv by
-    conv (utils/flops.scrfd_convs, bf16 bytes once, 2 x the multiply-adds
-    at BF16_FLOPS)."""
+def _conv_bound_ms(convs):
+    """The least time (ms) for ``convs`` (utils/flops.Conv) on an H100,
+    conv by conv: bf16 bytes once, 2 x the multiply-adds at BF16_FLOPS."""
+    bound = 0.0
+    for cv in convs:
+        oh, ow = cv.out
+        act = cv.h * cv.w * cv.cin + oh * ow * cv.cout
+        wts = cv.cout * cv.cin * cv.k * cv.k + cv.cout
+        bound += bound_ms(2 * (act + wts), 2 * cv.macs, BF16_FLOPS)[0]
+    return round(bound, 5)
+
+
+def _conv_times(calls, bound):
+    """ms for the convs of ``calls`` issued back to back, each set
+    captured as one CUDA graph and replayed: the kernel, its plain version
+    (the library route: cuDNN's conv with its bias, then the shortcut add,
+    the upsample, the ReLU and the copy into a slice as passes of their
+    own) and the one library call that computes a plain conv with its
+    bias, F.conv2d, with a ReLU where the conv has one; with ``bound``, the
+    least time for them (``_conv_bound_ms``)."""
     import torch
     import torch.nn.functional as F
     from yunet_tpu_torch.ops.conv_epi import conv_epi, conv_epi_plain
-    from yunet_tpu_torch.utils import flops
 
     def kernel():
-        for x, c, res, up, _ in calls:
-            conv_epi(x, c.w, c.wp, c.b, stride=c.stride, relu=c.relu,
-                     residual=res, upsample=up)
+        for x, c, kw, _ in calls:
+            conv_epi(x, c.w, c.wp, c.b, **_epi_args(c, kw))
 
     def plain():
-        for x, c, res, up, _ in calls:
-            conv_epi_plain(x, c.w, c.b, stride=c.stride, relu=c.relu,
-                           residual=res, upsample=up)
+        for x, c, kw, _ in calls:
+            conv_epi_plain(x, c.w, c.b, **_epi_args(c, kw))
 
     def library():
         for x, c, *_ in calls:
@@ -1482,14 +1505,18 @@ def _scrfd_conv_times(calls, cfg):
                 fn()
             times[name] = round(cuda_ms(graph.replay, iters=20), 4)
             del graph
-    bound = 0.0
-    for cv in flops.scrfd_convs(cfg.model, 640, 640):
-        oh, ow = cv.out
-        act = cv.h * cv.w * cv.cin + oh * ow * cv.cout
-        wts = cv.cout * cv.cin * cv.k * cv.k + cv.cout
-        bound += bound_ms(2 * (act + wts), 2 * cv.macs, BF16_FLOPS)[0]
-    times["bound"] = round(bound, 5)
+    times["bound"] = bound
     return times
+
+
+# what a replayed SCRFD detect's trace holds a call (_replay_kernels):
+# SCRFD_CONVS conv kernels, all the port's, no channel padding, fewer
+# elementwise kernels than the library route's bias adds, one NMS mask and
+# scan
+SCRFD_REPLAY = {"conv": SCRFD_CONVS, "scrfd_fprop": SCRFD_CONVS,
+                "library_conv": 0, "padding": 0,
+                "elementwise": lambda v: v < SCRFD_CONVS,
+                "nms_mask_kernel": 1, "nms_scan_kernel": 1}
 
 
 def phase_scrfd():
@@ -1502,21 +1529,27 @@ def phase_scrfd():
     profiler trace of replayed calls with the conv kernels and one NMS
     mask and scan a call; the host's wall a detect, graphed and eager in
     turns. Before those, each of the SCRFD_CONVS convs of a detect through
-    csrc/scrfd_conv.cu against its plain version (_scrfd_conv_check), the
+    csrc/scrfd_conv.cu against its plain version (_conv_check), the
     wrapper's refusals, and the convs' time through the kernel, the plain
-    version and the library (_scrfd_conv_times); the counters of
+    version and the library (_conv_times); the counters of
     ``conv_epi`` (launches, those with a shortcut, those with a ReLU) read
     58, 16, 36 for the eager call and the capture and 0 for the replay."""
     import torch
+    from yunet_tpu_torch.models import scrfd as scrfd_module
     from yunet_tpu_torch.models.scrfd import scrfd_conv
     from yunet_tpu_torch.ops.conv_epi import conv_epi
+    from yunet_tpu_torch.utils import flops
     cfg, det = _scrfd_detector()
     top_k = cfg.test.device_nms_pre
     rng = np.random.RandomState(21)
     imgs = [face_image(rng, 640, 640, rng.randint(2, 12))
             for _ in range(GRAPH_CALLS)]
-    conv_errs, conv_calls = _scrfd_conv_check(det, imgs[0])
-    conv_times = _scrfd_conv_times(conv_calls, cfg)
+    conv_calls = _conv_calls(det, imgs[0], scrfd_module, "scrfd_conv",
+                             "scrfd_forward")
+    conv_errs = _conv_check(conv_calls, "scrfd", convs=SCRFD_CONVS,
+                            residual=SCRFD_RESIDUALS, relu=SCRFD_RELUS)
+    conv_times = _conv_times(conv_calls, _conv_bound_ms(
+        flops.scrfd_convs(cfg.model, 640, 640)))
     del conv_calls
     log(f"[scrfd] the {SCRFD_CONVS} convs through csrc/scrfd_conv.cu "
         f"against their plain version in f32: largest error "
@@ -1552,7 +1585,7 @@ def phase_scrfd():
                              f"launches, with a shortcut, with a ReLU) a "
                              f"call {counts}, want {want}")
     del fresh
-    kernels = _scrfd_kernels(det, imgs[0])
+    kernels = _replay_kernels(det, imgs[0], "scrfd", SCRFD_REPLAY)
     wall = {}
     for which in ("graph", "eager", "eager", "graph"):
         ctx = _eager() if which == "eager" else contextlib.nullcontext()
@@ -1595,6 +1628,174 @@ def scrfd_only():
     phase_build({"nms.cu": nms.LIB, "scrfd_conv.cu": conv_epi.LIB})
     log(f"[scrfd] {smi}: " + json.dumps(phase_scrfd()))
 
+
+
+RF_WEIGHTS = os.path.join(ROOT, "portbench", "weights", "retinaface_r50.npz")
+# the folded forward's convs a detect (the published 82, less 6: a level's
+# class, box and landmark heads are one conv), of which the FPN's two finer
+# laterals add the level above after their ReLU, and the SSH's 9 branch
+# ends and the 3 heads write into a slice of a wider map
+RF_CONVS, RF_POST_ADDS, RF_SLICED = 76, 2, 12
+
+
+def _rf_detector():
+    """A fused bf16 RetinaFace-R50 Detector on the card with the
+    benchmark's seeded weights (the conv weights drawn from the file's
+    seed, the rest read from it)."""
+    import torch
+    from portbench.weights.make_retinaface_r50 import load
+    from yunet_tpu_torch.config import get_config
+    from yunet_tpu_torch.eval.detect import Detector
+    cfg = get_config("retinaface_r50")
+    sd = load(dataclasses.asdict(cfg.model), RF_WEIGHTS, "cpu")
+    sd.update({k[:-len("running_mean")] + "num_batches_tracked":
+               torch.zeros((), dtype=torch.int64)
+               for k in list(sd) if k.endswith(".running_mean")})
+    return cfg, Detector(cfg, sd, device=DEV, fused=True)
+
+
+# what a replayed RetinaFace detect's trace holds a call (_replay_kernels):
+# RF_CONVS conv kernels, all the port's, no channel padding, no ReLU, no
+# concatenation of bf16 maps (the decode's and the packing's are f32), one
+# bf16 add (the input's mean), one NMS mask and scan
+RF_REPLAY = {"conv": RF_CONVS, "scrfd_fprop": RF_CONVS, "library_conv": 0,
+             "padding": 0, "cat_bf16": 0, "add_bf16": 1, "relu": 0,
+             "nms_mask_kernel": 1, "nms_scan_kernel": 1}
+# a canvas of another shape than the benchmark's, for the per-conv check
+RF_OTHER_CANVAS = (480, 640)
+
+
+def _rf_convs(cfg, h, w):
+    """utils/flops.retinaface_convs at h x w with each level's class, box
+    and landmark heads as the one conv the fold runs (they read one map)."""
+    from yunet_tpu_torch.utils import flops
+    convs = flops.retinaface_convs(cfg.model, h, w)
+    heads = [c for c in convs if c.bias]
+    levels = len(heads) // 3
+    return [c for c in convs if not c.bias] + [
+        c._replace(cout=sum(x.cout for x in heads[i::levels]))
+        for i, c in enumerate(heads[:levels])]
+
+
+def _rf_conv_run(det, img, cfg):
+    """The per-conv check (``_conv_check``) and graphed times
+    (``_conv_times``) of RetinaFace's RF_CONVS convs on ``img``'s
+    canvas."""
+    from yunet_tpu_torch.models import retinaface as rf
+    h, w = img.shape[:2]
+    calls = _conv_calls(det, img, rf, "retinaface_conv",
+                        "retinaface_forward")
+    errs = _conv_check(calls, f"retinaface {h}x{w}", convs=RF_CONVS,
+                       post_add=RF_POST_ADDS, sliced=RF_SLICED)
+    return errs, _conv_times(calls, _conv_bound_ms(_rf_convs(cfg, h, w)))
+
+
+def phase_retinaface():
+    """RetinaFace-R50 (``get_config("retinaface_r50")``, the benchmark's
+    weights) through a fused bf16 Detector's detect with device NMS at
+    640x640: each of the RF_CONVS convs of a detect through
+    csrc/scrfd_conv.cu against its plain version (_conv_check), at
+    640x640 and on a canvas of RF_OTHER_CANVAS, with the wrapper's
+    refusals, and the convs' time graphed through the kernel, the plain
+    version and the library (_conv_times); GRAPH_CALLS detects, each held
+    bit for bit to the eager program (``_graph_run``); on a new Detector,
+    the counted convs and ``conv_epi``'s counters (launches, with the
+    shortcut after the ReLU, into a slice) of three calls,
+    RF_CONVS/RF_POST_ADDS/RF_SLICED for the eager first and the capture,
+    none for the replay, with K3's 2, 2, 0; a profiler trace of replayed
+    calls (_replay_kernels); the host's wall a detect, graphed and eager in
+    turns."""
+    import torch
+    from yunet_tpu_torch.models.retinaface import retinaface_conv
+    from yunet_tpu_torch.ops.conv_epi import conv_epi
+    cfg, det = _rf_detector()
+    top_k = cfg.test.device_nms_pre
+    rng = np.random.RandomState(26)
+    imgs = [face_image(rng, 640, 640, rng.randint(2, 12))
+            for _ in range(GRAPH_CALLS)]
+    other = face_image(rng, *RF_OTHER_CANVAS, 6)
+    conv_runs = {}
+    for img in (imgs[0], other):
+        errs, times = _rf_conv_run(det, img, cfg)
+        shape = "x".join(map(str, img.shape[:2]))
+        conv_runs[shape] = {"errors_of_tolerance": [round(e, 4)
+                                                    for e, _ in errs],
+                            "ms_graphed": times}
+        log(f"[retinaface] the {RF_CONVS} convs of a {shape} canvas "
+            f"through csrc/scrfd_conv.cu against their plain version in "
+            f"f32: largest error {max(e for e, _ in errs):.3f} of the "
+            f"tolerance (the plain version in bf16 reads "
+            f"{max(e for _, e in errs):.3f}); non-bf16 and "
+            f"non-channels-last inputs refused; ms for the {RF_CONVS} "
+            f"convs, graphed: {times}")
+    graphed, walls = _graph_run(det, imgs, top_k)
+    reps = GRAPH_CALLS - 2
+    if (det.graphs.captures, det.graphs.replays, graphed) != (1, reps,
+                                                              reps + 1):
+        raise AssertionError(
+            f"retinaface: {det.graphs.captures} captures, "
+            f"{det.graphs.replays} replays, {graphed} graphed calls; want "
+            f"1, {reps}, {reps + 1}")
+    _, fresh = _rf_detector()
+    counts = []
+    for img in imgs[:3]:
+        reset_launch_counts()
+        before = (retinaface_conv.launches, conv_epi.launches,
+                  conv_epi.launches_post_add, conv_epi.launches_sliced)
+        fresh.detect(img, use_device_nms=True)
+        torch.cuda.synchronize()
+        counts.append((retinaface_conv.launches - before[0],
+                       launch_counts()["greedy_nms"],
+                       conv_epi.launches - before[1],
+                       conv_epi.launches_post_add - before[2],
+                       conv_epi.launches_sliced - before[3]))
+    once = (RF_CONVS, 2, RF_CONVS, RF_POST_ADDS, RF_SLICED)
+    want = [once, once, (0, 0, 0, 0, 0)]
+    if counts != want or (fresh.graphs.captures,
+                          fresh.graphs.replays) != (1, 1):
+        raise AssertionError(f"retinaface: counted (convs, K3, conv_epi "
+                             f"launches, adding after the ReLU, into a "
+                             f"slice) a call {counts}, want {want}")
+    del fresh
+    kernels = _replay_kernels(det, imgs[0], "retinaface", RF_REPLAY)
+    wall = {}
+    for which in ("graph", "eager", "eager", "graph"):
+        ctx = _eager() if which == "eager" else contextlib.nullcontext()
+        with ctx:
+            ts = []
+            for i in range(200):
+                t0 = time.perf_counter()
+                det.detect(imgs[i % GRAPH_CALLS], use_device_nms=True)
+                ts.append(time.perf_counter() - t0)
+        wall.setdefault(which, []).append(
+            round(statistics.median(ts) * 1e3, 4))
+    report = {"calls_ms": {"first": round(walls[0], 3),
+                           "capture": round(walls[1], 3),
+                           "replay_median": round(statistics.median(
+                               walls[2:]), 3)},
+              "counted_convs_k3_epilogue": counts,
+              "convs": conv_runs, "kernels_a_call": kernels,
+              "wall_ms": wall}
+    log(f"[retinaface] {GRAPH_CALLS} detects at 640x640 == the eager "
+        f"program bit for bit; 1 capture, {reps} replays; counted (convs, "
+        f"K3, conv_epi launches, adding after the ReLU, into a slice) of "
+        f"an eager call, a capture, a replay {counts}; detect wall ms, "
+        f"median of 200 (graph, eager, eager, graph in turns): {wall}")
+    return report
+
+
+def retinaface_only():
+    """phase_retinaface alone: python3 -c "import chip_smoke as s;
+    s.retinaface_only()" from the repository root. Builds nms.cu and
+    scrfd_conv.cu."""
+    import torch
+    from yunet_tpu_torch.ops import conv_epi, nms
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    smi = nvidia_smi_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} | {smi}")
+    phase_build({"nms.cu": nms.LIB, "scrfd_conv.cu": conv_epi.LIB})
+    log(f"[retinaface] {smi}: " + json.dumps(phase_retinaface()))
 
 # -- the WIDER evaluation path -------------------------------------------------
 
@@ -4813,6 +5014,7 @@ def main() -> int:
     _, fdet, serve_launches = phase(phase_slice)
     log(f"[graph] {smi}: " + json.dumps(phase(phase_graph, model)))
     log(f"[scrfd] {smi}: " + json.dumps(phase(phase_scrfd)))
+    log(f"[retinaface] {smi}: " + json.dumps(phase(phase_retinaface)))
     train_launches, batches = phase(phase_train, sd)
     bwd_err, bwd_t = phase(phase_convdp_bwd, folded, cfg)
     fused_launches, _ = phase(phase_train_fused, sd, batches)

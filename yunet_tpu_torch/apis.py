@@ -74,7 +74,7 @@ def init_detector(config: Union[str, Config],
       * an ``.onnx`` file (the reference's or export_onnx's): its
         BN-folded weights drive a fused Detector that holds no model;
       * any checkpoint ``read_weights`` reads;
-      * for SCRFD, a ``.pth`` state dict alone.
+      * for SCRFD and RetinaFace, a ``.pth`` state dict alone.
     """
     cfg = get_config(config) if isinstance(config, str) else config
     arch = architecture(cfg.model)

@@ -3,9 +3,10 @@
 A copy of ``yunet_tpu/config.py``'s dataclasses and its two YuNet
 presets: that file is framework-neutral, but importing it runs
 ``yunet_tpu/__init__.py``, which imports jax. A test holds this copy equal
-to the original, field by field. ``SCRFDConfig`` and its preset
-``scrfd_10g_bnkps`` are the port's own: a second architecture that runs
-through the same detect path.
+to the original, field by field. ``SCRFDConfig`` and ``RetinaFaceConfig``
+and their presets ``scrfd_10g_bnkps`` and ``retinaface_r50`` are the
+port's own: a second and a third architecture that run through the same
+detect path.
 """
 
 from __future__ import annotations
@@ -68,6 +69,34 @@ class SCRFDConfig:
     kps_num: int = 5
     strides: Tuple[int, ...] = (8, 16, 32)
     prior_offset: float = 0.0
+
+
+@dataclass(frozen=True)
+class RetinaFaceConfig:
+    """RetinaFace's plan (Deng et al., CVPR 2020, as biubug6's
+    Pytorch_Retinaface builds ``cfg_re50``): a torchvision ResNet-50
+    (v1.5) backbone, an FPN over its stages 2-4, an SSH module a level and
+    1x1 class, box and landmark heads, decoded against SSD prior boxes.
+    The detect path serves it; the training path does not."""
+
+    name: str = "retinaface_r50"
+    # a 7x7/2 conv to stem_channels, then a 3x3/2 max pool (padding 1)
+    stem_channels: int = 64
+    stage_blocks: Tuple[int, ...] = (3, 4, 6, 3)
+    stage_planes: Tuple[int, ...] = (64, 128, 256, 512)
+    expansion: int = 4                  # a Bottleneck's out / planes
+    # the neck reads stages start_level.. (strides 8, 16, 32)
+    neck_start_level: int = 1
+    out_channel: int = 256
+    num_anchors: int = 2
+    kps_num: int = 5
+    # the prior boxes' sizes (px) a level, and each level's step
+    min_sizes: Tuple[Tuple[int, ...], ...] = ((16, 32), (64, 128),
+                                              (256, 512))
+    steps: Tuple[int, ...] = (8, 16, 32)
+    variance: Tuple[float, ...] = (0.1, 0.2)
+    # subtracted from the raw BGR input, channel by channel
+    input_mean: Tuple[float, ...] = (104.0, 117.0, 123.0)
 
 
 @dataclass(frozen=True)
@@ -148,7 +177,8 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class Config:
-    model: ModelConfig | SCRFDConfig = field(default_factory=ModelConfig)
+    model: ModelConfig | SCRFDConfig | RetinaFaceConfig = field(
+        default_factory=ModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     assigner: AssignerConfig = field(default_factory=AssignerConfig)
     test: TestConfig = field(default_factory=TestConfig)
@@ -185,8 +215,20 @@ def scrfd_10g_bnkps() -> Config:
                   work_dir="./work_dirs/scrfd_10g_bnkps")
 
 
+def retinaface_r50() -> Config:
+    """RetinaFace with a ResNet-50 backbone at its published widths
+    (biubug6's ``cfg_re50``; facexlib's ``retinaface_resnet50``); test
+    settings as its ``detect.py`` publishes them: confidence 0.02, the top
+    5000 before NMS, NMS IoU 0.4, the top 750 after it."""
+    return Config(model=RetinaFaceConfig(),
+                  test=TestConfig(score_thr=0.02, nms_iou_thr=0.4,
+                                  max_per_img=750, device_nms_pre=5000),
+                  work_dir="./work_dirs/retinaface_r50")
+
+
 _PRESETS = {"yunet_n": yunet_n, "yunet_s": yunet_s,
-            "scrfd_10g_bnkps": scrfd_10g_bnkps}
+            "scrfd_10g_bnkps": scrfd_10g_bnkps,
+            "retinaface_r50": retinaface_r50}
 
 
 def get_config(name: str) -> Config:

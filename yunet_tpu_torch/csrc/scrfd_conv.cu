@@ -1,21 +1,33 @@
-// SCRFD's folded convolutions: a forward conv on NHWC bf16 (implicit GEMM,
-// f32 accumulation) whose epilogue adds the bias, an optional shortcut and
-// an optional ReLU before the one rounding to bf16.
+// SCRFD's and RetinaFace's folded convolutions: a forward conv on NHWC bf16
+// (implicit GEMM, f32 accumulation) whose epilogue adds the bias, an
+// optional shortcut and an optional ReLU (or the ReLU, then the shortcut)
+// before the one rounding to bf16, into a whole map or a slice of a wider
+// one.
 //
-// Replaces no TPU kernel: SCRFD has no counterpart in the JAX package. It
-// was added to take the passes that ran around the library's convs out of
-// the detect program: PyTorch's bias add after each conv, the ReLUs, the
-// shortcut and FPN adds, the FPN's nearest 2x upsample, and cuDNN's channel
-// padding kernels for the 3- and 28-channel inputs and the 2- and
-// 20-channel outputs (about 130 kernels a 640x640 detect).
+// Replaces no TPU kernel: neither model has a counterpart in the JAX
+// package. It was added to take the passes that ran around the library's
+// convs out of the detect program: PyTorch's bias add after each conv, the
+// ReLUs, the shortcut and FPN adds, the FPN's nearest 2x upsample, and
+// cuDNN's channel padding kernels for the 3- and 28-channel inputs and the
+// 2- and 20-channel outputs (about 130 kernels a 640x640 SCRFD detect);
+// for RetinaFace also the SSH's concatenation (each branch's last conv
+// writes its channels of the level's map, relu(cat) = cat(relu)) and the
+// heads' concatenation over levels (each level's merged head writes its
+// run of rows).
 //
-// What bounds it on the H100: at batch 1 every conv is small (the largest
-// is 1.45 GMAC), so latency, not bytes or the tensor cores: the least
-// time is yardstick/scrfd.py:conv_bound_ms taken conv by conv (39.07 us
-// for the 58 convs at 640x640: bf16 activations read and written once,
+// What bounds it on the H100: at batch 1 SCRFD's convs are small (the
+// largest is 1.45 GMAC), so latency, not bytes or the tensor cores: the
+// least time is yardstick/scrfd.py:conv_bound_ms taken conv by conv (39.07
+// us for the 58 convs at 640x640: bf16 activations read and written once,
 // weights read once, 2 x the multiply-adds at 989 TFLOP/s). So the design
 // keeps each conv to one kernel, few round trips to device memory, little
 // address arithmetic (no division in a loop), and enough warps in flight.
+// RetinaFace-R50's 76 folded convs (44.3 GMAC, channels to 2048, K to
+// 2304) have a bound of 157.4 us (yardstick/retinaface.py), 88.5 GFLOP of
+// it compute: big enough that the tensor cores' use decides, and there
+// the kernel's 32-pixel warp tiles on mma.sync m16n8k16 (an ldmatrix for
+// every two MMAs at 32 channels a block column) reach 20-170 TFLOP/s a
+// conv, 57 overall.
 //
 // GEMM view: M = output pixels, N = Cout, K = ks * ks * cp, tap-major, cp
 // = Cin rounded up to a multiple of 8. The weights come packed once at the
@@ -45,9 +57,15 @@
 // more warps without a second kernel.
 //   Epilogue: + bias (f32), + the shortcut (bf16, at the output's
 // resolution or, with up = 2, at half of it, read at (y / 2, x / 2): the
-// FPN's nearest 2x upsample), then ReLU if set; rounded once to bf16 into
-// an output tile in shared memory, which goes to device memory in pieces
-// of 16 bytes where Cout is a multiple of 8 (8, 4 or 2 where it is not).
+// FPN's nearest 2x upsample), then ReLU if set (with post set, the ReLU
+// first and the shortcut after it: RetinaFace's FPN laterals); rounded
+// once to bf16 into an output tile in shared memory, which goes to device
+// memory in pieces of 16 bytes where Cout and the output's pixel pitch ldc
+// are multiples of 8 (8, 4 or 2 where they are not), pixel (b, y, x) at b
+// * img + (y * wo + x) * ldc: a whole map, a channel slice of a wider one,
+// or a run of pixels of a longer one. The shortcut after the ReLU and the
+// pitched store are a template argument (WIDE): with them as run-time
+// branches SCRFD's 58 convs took 0.0145 ms (2.3%) longer graphed.
 // The bias, the shortcut (staged into the output tile) and the weights of
 // the first chunks are requested before the halo's pixel table is built,
 // so their latency overlaps it. The library route rounds the conv, the
@@ -62,13 +80,19 @@
 // launch and set-up overlap this one's epilogue, and a trace's intervals
 // of consecutive convs overlap by that much.
 //
-// As built, on an H100 (700 W; PERF.md), the 58 convs of a 640x640 detect
-// take 0.63 ms replayed as one CUDA graph (0.69-0.71 ms launched without
-// the dependency), against 0.95-0.99 ms for the library route (cuDNN's
-// convs and cuBLAS's 1x1 GEMMs with PyTorch's bias, shortcut, upsample
-// and ReLU passes), 16x their bound. What is left is latency a block: the
-// first round trip to device memory, the multiply (smem-bound in ldmatrix
-// at these warp tiles), the epilogue.
+// As built, on an H100 (700 W; PERF.md), the 58 convs of a 640x640 SCRFD
+// detect take 0.63 ms replayed as one CUDA graph (0.69-0.71 ms launched
+// without the dependency), against 0.95-0.99 ms for the library route
+// (cuDNN's convs and cuBLAS's 1x1 GEMMs with PyTorch's bias, shortcut,
+// upsample and ReLU passes), 16x their bound. What is left is latency a
+// block: the first round trip to device memory, the multiply (smem-bound
+// in ldmatrix at these warp tiles), the epilogue. RetinaFace-R50's 76
+// take 1.55 ms at 640x640 and 1.41 ms at 480x640 (10x and 12x their
+// bound) with each shape's tile timed at its first call
+// (ops/conv_epi.py:_pick_tile), against 1.42 and 1.28 ms for the library
+// route: the 7x7/2 stem alone ~98 us (3 channels padded to 16 a tap), and
+// the 1x1 convs at 13-70 TFLOP/s. The tiles matter there: a rule fitted
+// at 640x640 took 1.71 ms at 480x640.
 // Tried and not kept: an implicit GEMM that gathered every tap's pixels
 // from device memory (1.2-1.3 ms for the 58: the address arithmetic and
 // the 9x reads), and the same halo design on wgmma (m64nNk16, operands
@@ -96,13 +120,27 @@ struct Conv {
   const bf16* wp;      // (cout, kdim), packed
   const float* bias;   // (cout)
   const bf16* res;     // (n, ho / up, wo / up, cout) or null
-  bf16* out;           // (n, ho, wo, cout)
+  bf16* out;           // (n, ho, wo, cout), or see img and ldc
   int h, w, cin, cp, ks, stride, pad, ho, wo, cout, kdim, up, relu;
   int tw_shift, th, tiles_x, tiles_y;  // the output tile: th x (1 << tw_shift)
   int hr, hc;                          // its input halo: hr x hc pixels
   int wm, wk, kc, vw, g_shift, g_shift8, chunks, stages;
   int res_staged;                      // the shortcut read through smem
+  // a wide launch's: the shortcut added after the ReLU, not before; the
+  // output's pixel pitch and image pitch, in elements (pixel (b, y, x) at
+  // out + b * img + (y * wo + x) * ldc)
+  int post, ldc;
+  long long img;
 };
+
+// A launch is wide where it adds its shortcut after the ReLU or writes
+// into a view of a wider map; every other launch (all of SCRFD's) runs the
+// kernel's narrow instantiation, whose epilogue and store are the ones it
+// had before the wide launches came.
+bool wide(const Conv& p) {
+  return p.post || p.ldc != p.cout ||
+         p.img != static_cast<long long>(p.ho) * p.wo * p.cout;
+}
 
 // A block's shared memory, in bytes: the halo's pixel table, the bias,
 // the output tile (which holds the shortcut first, where it is staged),
@@ -320,7 +358,9 @@ struct EpilogueTile {
 };
 
 // Output pixel pi of the tile at channels j, j + 1 (from n0): + bias, +
-// the shortcut, ReLU, rounded to bf16 into the tile.
+// the shortcut, ReLU (or, WIDE with p.post set, + bias, ReLU, + the
+// shortcut), rounded to bf16 into the tile.
+template <bool WIDE>
 __device__ __forceinline__ void finish_pair(const Conv& p,
                                             const EpilogueTile& et, int pi,
                                             int j, float v0, float v1) {
@@ -338,18 +378,39 @@ __device__ __forceinline__ void finish_pair(const Conv& p,
                       oy / p.up) * (p.wo / p.up) + ox / p.up) * p.cout +
             et.n0;
   }
-  if (res && et.n0 + j < p.cout) {
-    v0 += __bfloat162float(res[j]);
-    if (et.n0 + j + 1 < p.cout) v1 += __bfloat162float(res[j + 1]);
-  }
-  if (p.relu) {
-    v0 = fmaxf(v0, 0.f);
-    v1 = fmaxf(v1, 0.f);
+  if constexpr (WIDE) {
+    const bool add = res && et.n0 + j < p.cout;
+    float r0 = 0.f, r1 = 0.f;
+    if (add) {
+      r0 = __bfloat162float(res[j]);
+      if (et.n0 + j + 1 < p.cout) r1 = __bfloat162float(res[j + 1]);
+    }
+    if (add && !p.post) {
+      v0 += r0;
+      v1 += r1;
+    }
+    if (p.relu) {
+      v0 = fmaxf(v0, 0.f);
+      v1 = fmaxf(v1, 0.f);
+    }
+    if (add && p.post) {
+      v0 += r0;
+      v1 += r1;
+    }
+  } else {
+    if (res && et.n0 + j < p.cout) {
+      v0 += __bfloat162float(res[j]);
+      if (et.n0 + j + 1 < p.cout) v1 += __bfloat162float(res[j + 1]);
+    }
+    if (p.relu) {
+      v0 = fmaxf(v0, 0.f);
+      v1 = fmaxf(v1, 0.f);
+    }
   }
   *reinterpret_cast<__nv_bfloat162*>(row + j) = __floats2bfloat162_rn(v0, v1);
 }
 
-template <int NT>
+template <int NT, bool WIDE>
 __global__ void __launch_bounds__(32 * kMaxWarps)
     scrfd_fprop_kernel(const Conv p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -513,7 +574,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       for (int half = 0; half < 2; ++half)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
-          finish_pair(p, et, warp_m * 32 + mt * 16 + half * 8 + g,
+          finish_pair<WIDE>(p, et, warp_m * 32 + mt * 16 + half * 8 + g,
                       nt * 8 + 2 * t4, acc[mt][nt][half * 2],
                       acc[mt][nt][half * 2 + 1]);
   } else {
@@ -540,28 +601,29 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
         v0 += src[0];
         v1 += src[32];
       }
-      finish_pair(p, et, wi * 32 + mt * 16 + half * 8 + (ln >> 2),
+      finish_pair<WIDE>(p, et, wi * 32 + mt * 16 + half * 8 + (ln >> 2),
                   nt * 8 + 2 * (ln & 3), v0, v1);
     }
   }
   __syncthreads();
 
   // the tile to device memory in pieces of pw channels (16 bytes where
-  // Cout allows): a warp's pieces are consecutive in memory along a pixel
-  // row, and so are a tile row's pixels where one block column holds Cout
+  // Cout and the pixel pitch allow): a warp's pieces are consecutive in
+  // memory along a pixel row, and so are a tile row's pixels where one
+  // block column holds Cout and the output is a whole map
   const int cw = min(nt_total, p.cout - n0);
-  const int pw = p.cout % 8 == 0   ? 8
-                 : p.cout % 4 == 0 ? 4
-                 : p.cout % 2 == 0 ? 2
-                                   : 1;
+  const int cl = WIDE ? p.cout | p.ldc : p.cout;
+  const int pw = cl % 8 == 0 ? 8 : cl % 4 == 0 ? 4 : cl % 2 == 0 ? 2 : 1;
   for (Walk w(tid, nthreads, cw / pw); w.row < 32 * wm; w.step()) {
     const int pi = w.row, j = w.col * pw;
     const int oy = oy0 + (pi >> p.tw_shift), ox = ox0 + (pi & twm);
     if (oy >= p.ho || ox >= p.wo) continue;
     const bf16* src = tile_s + pi * ldo + j;
     bf16* dst =
-        p.out + ((static_cast<long long>(b) * p.ho + oy) * p.wo + ox) *
-                    p.cout + n0 + j;
+        WIDE ? p.out + b * p.img +
+                   static_cast<long long>(oy * p.wo + ox) * p.ldc + n0 + j
+             : p.out + ((static_cast<long long>(b) * p.ho + oy) * p.wo + ox) *
+                           p.cout + n0 + j;
     if (pw == 8)
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
     else if (pw == 4)
@@ -574,12 +636,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   }
 }
 
-template <int NT>
-int launch(const Conv& p, size_t smem, int blocks, cudaStream_t stream) {
+template <int NT, bool WIDE>
+int launch_kernel(const Conv& p, size_t smem, int blocks,
+                  cudaStream_t stream) {
   static bool attribute_set = false;
   if (!attribute_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        scrfd_fprop_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        scrfd_fprop_kernel<NT, WIDE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kMaxSmem));
     if (e != cudaSuccess) return static_cast<int>(e);
     attribute_set = true;
@@ -597,8 +661,15 @@ int launch(const Conv& p, size_t smem, int blocks, cudaStream_t stream) {
   config.stream = stream;
   config.attrs = &attribute;
   config.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&config, scrfd_fprop_kernel<NT>, p);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&config, scrfd_fprop_kernel<NT, WIDE>, p);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <int NT>
+int launch(const Conv& p, size_t smem, int blocks, cudaStream_t stream) {
+  return wide(p) ? launch_kernel<NT, true>(p, smem, blocks, stream)
+                 : launch_kernel<NT, false>(p, smem, blocks, stream);
 }
 
 int multiprocessors() {
@@ -614,8 +685,8 @@ int multiprocessors() {
 }
 
 bool nt_ok(int nt) {
-  return nt == 1 || nt == 3 || nt == 4 || nt == 7 || nt == 10 || nt == 11 ||
-         nt == 14;
+  return nt == 1 || nt == 3 || nt == 4 || nt == 7 || nt == 8 || nt == 10 ||
+         nt == 11 || nt == 14 || nt == 16;
 }
 
 int log2_exact(int v) {
@@ -627,11 +698,13 @@ int log2_exact(int v) {
 // The launch's Conv from the C arguments, or false where the kernel does
 // not take them.
 bool make_conv(Conv& p, int n, int h, int w, int cin, int ks, int stride,
-               int ho, int wo, int cout, int up, int relu, bool res, int nt,
-               int wm, int wk, int tw, int kc) {
+               int ho, int wo, int cout, int up, int relu, bool res, int post,
+               int ldc, long long img, int nt, int wm, int wk, int tw,
+               int kc) {
   if (n < 1 || h < 1 || w < 1 || cin < 1 || cout < 1 || ks < 1 ||
       ks % 2 == 0 || stride < 1 || ho < 1 || wo < 1 || up < 1 ||
-      ho % up != 0 || wo % up != 0 || !nt_ok(nt) ||
+      ho % up != 0 || wo % up != 0 || (post && !res) || ldc < cout ||
+      img < static_cast<long long>(ho) * wo * ldc || !nt_ok(nt) ||
       (wm != 1 && wm != 2 && wm != 4 && wm != 8) ||
       (wk != 1 && wk != 2 && wk != 4 && wk != 8) || wm * wk > kMaxWarps ||
       (tw != 8 && tw != 16) || 32 * wm % tw != 0 ||
@@ -650,6 +723,9 @@ bool make_conv(Conv& p, int n, int h, int w, int cin, int ks, int stride,
   p.kdim = ks * ks * p.cp;
   p.up = up;
   p.relu = relu;
+  p.post = post;
+  p.ldc = ldc;
+  p.img = img;
   p.tw_shift = log2_exact(tw);
   p.th = 32 * wm / tw;
   p.tiles_x = (wo + tw - 1) / tw;
@@ -680,13 +756,17 @@ bool make_conv(Conv& p, int n, int h, int w, int cin, int ks, int stride,
 
 extern "C" {
 
-// out = [relu](conv(x, w, stride, ks / 2) + bias [+ res]), bf16 NHWC.
+// out = [relu](conv(x, w, stride, ks / 2) + bias [+ res]), bf16 NHWC; with
+// post, out = [relu](conv(x, w, stride, ks / 2) + bias) + res.
 // x: (n, h, w, cin) bf16; wp: (cout, ks * ks * cp) bf16, cp = cin rounded
 // up to 8, each tap's channels zero-padded; bias: (cout) f32; res: null or
-// (n, ho / up, wo / up, cout) bf16, read at (y / up, x / up); out: (n, ho,
-// wo, cout) bf16, all 16-byte aligned. The block: 8 nt output channels, nt
-// in {1, 3, 4, 7, 10, 11, 14}; an output tile of 32 wm pixels tw wide, tw
-// 8 or 16; wm x wk warps, wm, wk in {1, 2, 4, 8}, at most 8 in all; input
+// (n, ho / up, wo / up, cout) bf16, read at (y / up, x / up); out: output
+// pixel (b, y, x) at out + b * img + (y * wo + x) * ldc, its cout channels
+// consecutive (ldc = cout and img = ho * wo * cout for a whole map; a
+// slice of a wider map's channels, or of a longer run of pixels, else),
+// bf16; all 16-byte aligned. The block: 8 nt output channels, nt in {1, 3,
+// 4, 7, 8, 10, 11, 14, 16}; an output tile of 32 wm pixels tw wide, tw 8
+// or 16; wm x wk warps, wm, wk in {1, 2, 4, 8}, at most 8 in all; input
 // channel chunks of kc in {16, 32, 64}; within 200 KB of shared memory.
 // All device pointers; stream is a cudaStream_t. Returns
 // cudaErrorInvalidValue for what the kernel does not take, else
@@ -694,11 +774,12 @@ extern "C" {
 int yunet_scrfd_conv_forward(const void* x, const void* wp, const void* bias,
                              const void* res, void* out, int n, int h, int w,
                              int cin, int ks, int stride, int ho, int wo,
-                             int cout, int up, int relu, int nt, int wm,
-                             int wk, int tw, int kc, void* stream) {
+                             int cout, int up, int relu, int post, int ldc,
+                             long long img, int nt, int wm, int wk, int tw,
+                             int kc, void* stream) {
   Conv p;
   if (!make_conv(p, n, h, w, cin, ks, stride, ho, wo, cout, up, relu,
-                 res != nullptr, nt, wm, wk, tw, kc))
+                 res != nullptr, post, ldc, img, nt, wm, wk, tw, kc))
     return static_cast<int>(cudaErrorInvalidValue);
   p.x = static_cast<const bf16*>(x);
   p.wp = static_cast<const bf16*>(wp);
@@ -717,12 +798,16 @@ int yunet_scrfd_conv_forward(const void* x, const void* wp, const void* bias,
       return launch<4>(p, smem, blocks, s);
     case 7:
       return launch<7>(p, smem, blocks, s);
+    case 8:
+      return launch<8>(p, smem, blocks, s);
     case 10:
       return launch<10>(p, smem, blocks, s);
     case 11:
       return launch<11>(p, smem, blocks, s);
-    default:
+    case 14:
       return launch<14>(p, smem, blocks, s);
+    default:
+      return launch<16>(p, smem, blocks, s);
   }
 }
 

@@ -28,7 +28,6 @@ import torch
 from ..config import Config
 from ..models import YuNet, architecture
 from ..ops.nms import device_nms, device_nms_batched
-from ..ops.priors import grid_priors
 from ..ops.resize import resize
 from ..utils.profiling import laps, span
 from .. import native
@@ -114,8 +113,8 @@ def _result(sel: np.ndarray, kps_sel: np.ndarray,
 
 
 class Detector:
-    """Inference wrapper around a YuNet, or an SCRFD, on one device
-    (``models.architecture(cfg.model)``).
+    """Inference wrapper around a YuNet, an SCRFD or a RetinaFace on one
+    device (``models.architecture(cfg.model)``).
 
     dtype: torch.bfloat16 runs the conv trunk in bf16 (inputs shipped as
     uint8 and cast on the device), torch.float32 in f32. Score, decode and
@@ -124,7 +123,9 @@ class Detector:
     fused: fold BN into the convs. ``detect`` then runs every ConvDPUnit
     through the fused kernel (fastest at batch 1 on the TPU);
     ``detect_batch`` runs the folded units through the library convs, as
-    the JAX serving program does. SCRFD has no kernel of its own.
+    the JAX serving program does. SCRFD has no kernel of its own;
+    RetinaFace's ``detect`` runs its convs through ``ops/conv_epi.py``'s
+    kernel, ``detect_batch`` through the plain version.
 
     folded: a pre-folded tree (``export/onnx_import.py:load_onnx_params``)
     in place of a model: the detector then runs fused and holds no model
@@ -203,13 +204,10 @@ class Detector:
 
     # -- device programs ---------------------------------------------------
     def priors(self, h: int, w: int) -> torch.Tensor:
+        """The family's prior table of an h x w canvas, on the device."""
         if (h, w) not in self._priors:
-            # canvases are padded to a multiple of 32: division is exact
-            m = self.cfg.model
-            priors = grid_priors([(h // s, w // s) for s in m.strides],
-                                 m.strides, m.prior_offset,
-                                 num_anchors=self.arch.num_anchors(m))
-            self._priors[(h, w)] = torch.from_numpy(priors).to(self.device)
+            self._priors[(h, w)] = torch.from_numpy(self.arch.priors(
+                self.cfg.model, h, w)).to(self.device)
         return self._priors[(h, w)]
 
     @torch.inference_mode()
@@ -227,7 +225,7 @@ class Detector:
                     self.folded, xc, self.cfg.model, use_kernel=conv_kernel)
         with span("yunet.decode"):
             priors = self.priors(x.shape[1], x.shape[2])
-            return self.arch.decode(flat, priors)
+            return self.arch.decode(flat, priors, self.cfg.model)
 
     @torch.inference_mode()
     def detect_packed(self, x: torch.Tensor, top_k: int) -> torch.Tensor:
@@ -317,7 +315,9 @@ class Detector:
                     self._input, self.detect_packed)
                 lap("device_readback")
                 with span("yunet.result"):
-                    out = _result(*_kept_rows(packed, score_thr), det_scale)
+                    out = _result(*_kept_rows(
+                        packed, score_thr, self.cfg.test.max_per_img),
+                        det_scale)
             else:
                 x = self._input([det_img])
                 lap("put")
@@ -380,7 +380,8 @@ class Detector:
             packed = np.concatenate([o.cpu().numpy() for o in outs])
             self.last_devnms_saturated = int(
                 (packed[:, 0, -1] > packed.shape[1]).sum())
-            return [_result(*_kept_rows(packed[i, :, :-1], score_thr), sc)
+            return [_result(*_kept_rows(packed[i, :, :-1], score_thr,
+                                        self.cfg.test.max_per_img), sc)
                     for i, sc in enumerate(scales)]
         outs = [det.raw(det._input(v), conv_kernel=False)
                 for det, v in shards]
@@ -548,13 +549,15 @@ class Detector:
             self.detect(np.zeros((h, w, 3), np.uint8), mode="AUTO")
 
     def _host_nms(self, scores, boxes, kps, score_thr, max_dets=None):
-        """Exact, uncapped host NMS on one image's raw outputs ->
-        (detections (n, 5), keypoints (n, 2K))."""
+        """Exact host NMS on one image's raw outputs, uncapped before it,
+        the top ``cfg.test.max_per_img`` (where positive) and ``max_dets``
+        kept after it -> (detections (n, 5), keypoints (n, 2K))."""
         valid = scores >= score_thr
         bv, sv, kv = boxes[valid], scores[valid], kps[valid]
         keep = native.nms(bv, sv, self.cfg.test.nms_iou_thr)
-        if max_dets is not None and max_dets > 0:
-            keep = keep[:max_dets]
+        for cap in (self.cfg.test.max_per_img, max_dets):
+            if cap is not None and cap > 0:
+                keep = keep[:cap]
         return np.concatenate([bv[keep], sv[keep, None]], axis=-1), kv[keep]
 
 
@@ -575,10 +578,14 @@ def _tree_to(tree, device):
     return tree
 
 
-def _kept_rows(packed: np.ndarray, score_thr: float):
-    """Packed device-NMS rows [x1 y1 x2 y2 score keep kps...] of one image
-    -> the kept (detections, keypoints). The device program bakes in
+def _kept_rows(packed: np.ndarray, score_thr: float,
+               max_per_img: int = -1):
+    """Packed device-NMS rows [x1 y1 x2 y2 score keep kps...] of one image,
+    in score order -> the kept (detections, keypoints), the first
+    max_per_img of them where it is positive. The device program bakes in
     cfg.test.score_thr; a higher per-call threshold is exact as a post-NMS
     filter (below-threshold boxes only suppress each other)."""
-    keep = (packed[:, 5] > 0.5) & (packed[:, 4] >= score_thr)
+    keep = np.flatnonzero((packed[:, 5] > 0.5) & (packed[:, 4] >= score_thr))
+    if max_per_img > 0:
+        keep = keep[:max_per_img]
     return packed[keep, :5], packed[keep, 6:]

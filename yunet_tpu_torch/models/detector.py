@@ -11,11 +11,13 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ..config import ModelConfig
 from ..ops.boxes import bbox_decode, fuse_score, kps_decode
+from ..ops.priors import grid_priors
 from .backbone import YuNetBackbone
 from .fused import fold_inference_params, fused_forward
 from .head import YuNetHead, flatten_level_outputs
@@ -94,7 +96,8 @@ class YuNet(nn.Module):
                                                    use_kernel=use_kernel))
 
     @staticmethod
-    def decode(flat: Dict[str, torch.Tensor], priors: torch.Tensor
+    def decode(flat: Dict[str, torch.Tensor], priors: torch.Tensor,
+               cfg: ModelConfig
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         return (fuse_score(flat["cls"][..., 0].float(),
                            flat["obj"][..., 0].float()),
@@ -104,3 +107,15 @@ class YuNet(nn.Module):
     @staticmethod
     def num_anchors(cfg: ModelConfig) -> int:
         return 1
+
+    @staticmethod
+    def priors(cfg: ModelConfig, h: int, w: int) -> np.ndarray:
+        """The (P, 4) [x, y, stride, stride] table of an h x w canvas (a
+        multiple of 32)."""
+        return grid_priors([(h // s, w // s) for s in cfg.strides],
+                           cfg.strides, cfg.prior_offset)
+
+    @staticmethod
+    def count_macs(cfg: ModelConfig, input_size) -> int:
+        from ..utils.flops import yunet_macs
+        return yunet_macs(cfg, input_size)

@@ -40,6 +40,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -47,6 +48,7 @@ import torch.nn.functional as F
 from ..config import SCRFDConfig
 from ..ops.boxes import distance_decode, kps_decode
 from ..ops.conv_epi import conv_epi, conv_epi_plain, pack_weights
+from ..ops.priors import grid_priors
 from ..utils.profiling import span
 from .fused import fold_conv_bn
 from .head import flatten_level_outputs
@@ -261,7 +263,8 @@ class SCRFD(nn.Module):
         return scrfd_forward(folded, x, cfg)      # no kernel of its own
 
     @staticmethod
-    def decode(flat: Dict[str, torch.Tensor], priors: torch.Tensor
+    def decode(flat: Dict[str, torch.Tensor], priors: torch.Tensor,
+               cfg: SCRFDConfig
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         return (torch.sigmoid(flat["cls"][..., 0].float()),
                 distance_decode(priors, flat["bbox"].float()),
@@ -270,6 +273,19 @@ class SCRFD(nn.Module):
     @staticmethod
     def num_anchors(cfg: SCRFDConfig) -> int:
         return cfg.num_anchors
+
+    @staticmethod
+    def priors(cfg: SCRFDConfig, h: int, w: int) -> np.ndarray:
+        """The (P, 4) [x, y, stride, stride] table of an h x w canvas (a
+        multiple of 32), each location num_anchors times."""
+        return grid_priors([(h // s, w // s) for s in cfg.strides],
+                           cfg.strides, cfg.prior_offset,
+                           num_anchors=cfg.num_anchors)
+
+    @staticmethod
+    def count_macs(cfg: SCRFDConfig, input_size) -> int:
+        from ..utils.flops import scrfd_macs
+        return scrfd_macs(cfg, input_size)
 
 
 # -- the folded trunk -----------------------------------------------------------

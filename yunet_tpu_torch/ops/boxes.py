@@ -11,6 +11,15 @@ SCRFD's head predicts distances from the anchor point instead:
 
   bbox:  corners = prior_xy -+ pred[..., (l, t) | (r, b)] * stride
   score = sigmoid(cls), with no objectness
+
+RetinaFace's, offsets from SSD prior boxes [cx, cy, w, h] with variances
+(v0, v1) (``ssd_box_decode``, ``ssd_kps_decode``):
+
+  bbox:  c = prior_c + pred[..., :2] * v0 * prior_wh
+         wh = prior_wh * exp(pred[..., 2:] * v1)
+         (x1, y1) = c - wh / 2, (x2, y2) = (x1, y1) + wh
+  kps:   kp_i = prior_c + pred[..., 2i:2i+2] * v0 * prior_wh
+  score = softmax(cls)[..., 1] of two logits an anchor
 """
 
 from __future__ import annotations
@@ -42,6 +51,32 @@ def kps_decode(priors: torch.Tensor, kps_pred: torch.Tensor) -> torch.Tensor:
     pts = kps_pred.reshape(*kps_pred.shape[:-1], nk, 2)
     pts = pts * priors[..., None, 2:] + priors[..., None, :2]
     return pts.reshape(kps_pred.shape)
+
+
+def ssd_box_decode(priors: torch.Tensor, loc: torch.Tensor, variance
+                   ) -> torch.Tensor:
+    """priors (..., P, 4) [cx, cy, w, h]; loc (..., P, 4) -> xyxy, in the
+    order of operations of RetinaFace's ``utils/box_utils.py:decode``."""
+    v0, v1 = variance
+    c = priors[..., :2] + loc[..., :2] * v0 * priors[..., 2:]
+    wh = priors[..., 2:] * torch.exp(loc[..., 2:] * v1)
+    lt = c - wh / 2
+    return torch.cat([lt, lt + wh], dim=-1)
+
+
+def ssd_kps_decode(priors: torch.Tensor, ldm: torch.Tensor, v0: float
+                   ) -> torch.Tensor:
+    """ldm (..., P, 2K) offsets -> keypoints (..., P, 2K): each point the
+    prior's centre + offset * v0 * the prior's size (``decode_landm``)."""
+    nk = ldm.shape[-1] // 2
+    pts = ldm.reshape(*ldm.shape[:-1], nk, 2)
+    pts = priors[..., None, :2] + pts * v0 * priors[..., None, 2:]
+    return pts.reshape(ldm.shape)
+
+
+def softmax_score(cls_logits: torch.Tensor) -> torch.Tensor:
+    """(..., 2) background and face logits -> the face's softmax."""
+    return torch.softmax(cls_logits, dim=-1)[..., 1]
 
 
 def kps_encode(priors: torch.Tensor, kps: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,8 @@ from ..utils.flops import count_macs, count_params
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("config", help="yunet_n | yunet_s | scrfd_10g_bnkps")
+    p.add_argument("config",
+                   help="yunet_n | yunet_s | scrfd_10g_bnkps | retinaface_r50")
     p.add_argument("--shape", type=int, nargs="+", default=[320, 320])
     args = p.parse_args(argv)
 

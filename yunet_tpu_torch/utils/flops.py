@@ -1,7 +1,9 @@
 """Analytic complexity counter (params + multiply-accumulates) — a copy of
 ``yunet_tpu/utils/flops.py`` (framework-neutral; a test holds the counts
-equal to the original's), and the port's own count for an SCRFD plan
-(``scrfd_convs``, ``scrfd_macs``).
+equal to the original's), and the port's own counts for an SCRFD plan
+(``scrfd_convs``, ``scrfd_macs``) and a RetinaFace plan
+(``retinaface_convs``, ``retinaface_macs``). ``count_macs`` and
+``count_params`` ask the plan's model class (``models.architecture``).
 
 Replaces tools/get_flops.py + mmcv get_model_complexity_info: the model is
 a fixed conv pipeline, so MACs are computed in closed form from the
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 from typing import List, NamedTuple, Tuple
 
-from ..config import ModelConfig, SCRFDConfig
+from ..config import ModelConfig, RetinaFaceConfig, SCRFDConfig
 
 
 def _conv_macs(h, w, cin, cout, k, groups=1, stride=1):
@@ -38,10 +40,13 @@ def _conv_dp_macs(h, w, cin, cout, with_bn=True):
     return m1 + m2 + mb, h, w
 
 
-def count_macs(cfg: ModelConfig | SCRFDConfig,
+def count_macs(cfg: ModelConfig | SCRFDConfig | RetinaFaceConfig,
                input_size: Tuple[int, int] = (320, 320)) -> int:
-    if isinstance(cfg, SCRFDConfig):
-        return scrfd_macs(cfg, input_size)
+    from ..models import architecture
+    return architecture(cfg).count_macs(cfg, input_size)
+
+
+def yunet_macs(cfg: ModelConfig, input_size: Tuple[int, int]) -> int:
     h, w = input_size
     total = 0
     # stem: 3x3/2 conv + ConvDPUnit
@@ -91,16 +96,17 @@ def count_macs(cfg: ModelConfig | SCRFDConfig,
     return total
 
 
-def count_params(cfg: ModelConfig | SCRFDConfig) -> int:
+def count_params(cfg: ModelConfig | SCRFDConfig | RetinaFaceConfig
+                 ) -> int:
     from ..models import architecture
     # on the meta device: shapes only, no parameter memory
     return architecture(cfg)(cfg, device="meta").num_params
 
 
 class Conv(NamedTuple):
-    """One conv of SCRFD: input h x w, channels, kernel, stride, whether
-    it has a bias, a BN, and a ReLU on its output (a block's second conv
-    counts the ReLU after its shortcut's add)."""
+    """One conv of SCRFD or RetinaFace: input h x w, channels, kernel,
+    stride, whether it has a bias, a BN, and a ReLU on its output (a
+    block's last conv counts the ReLU after its shortcut's add)."""
     h: int
     w: int
     cin: int
@@ -177,4 +183,65 @@ def scrfd_macs(cfg: SCRFDConfig, input_size: Tuple[int, int]) -> int:
         total += c.macs + oh * ow * c.cout * (c.bias + 2 * c.bn + c.relu)
         if c.k == 1 and c.bn:                         # an avg-down's pool
             total += c.cin * (c.h * 2) * (c.w * 2)
+    return total
+
+
+def retinaface_convs(cfg: RetinaFaceConfig, h: int, w: int) -> List[Conv]:
+    """Every conv of one RetinaFace forward at h x w (multiples of 32), in
+    the order of the unfused model (``models/retinaface.py``): the stem,
+    each Bottleneck's three convs and its shortcut's, the FPN's laterals
+    and merges, each level's SSH, then the class, box and landmark heads
+    level by level (82 at retinaface_r50). A Bottleneck's third conv, the
+    SSH's branch ends and the SSH's first conv count no ReLU module: the
+    block's ReLU after the add is counted on its third conv, the SSH's
+    final ReLU is functional."""
+    c = cfg.stem_channels
+    out = [Conv(h, w, 3, c, 7, 2, False, True, True)]
+    h, w, cin = h // 4, w // 4, c
+    sizes = []
+    for s, (n, planes) in enumerate(zip(cfg.stage_blocks,
+                                        cfg.stage_planes)):
+        cout = planes * cfg.expansion
+        for j in range(n):
+            st = 2 if s > 0 and j == 0 else 1
+            ho, wo = h // st, w // st
+            out += [Conv(h, w, cin, planes, 1, 1, False, True, True),
+                    Conv(h, w, planes, planes, 3, st, False, True, True),
+                    Conv(ho, wo, planes, cout, 1, 1, False, True, True)]
+            if st != 1 or cin != cout:
+                out.append(Conv(h, w, cin, cout, 1, st, False, True, False))
+            h, w, cin = ho, wo, cout
+        sizes.append((h, w, cout))
+    levels = sizes[cfg.neck_start_level:]
+    o = cfg.out_channel
+    out += [Conv(lh, lw, lc, o, 1, 1, False, True, True)
+            for lh, lw, lc in levels]
+    out += [Conv(lh, lw, o, o, 3, 1, False, True, True)
+            for lh, lw, _ in levels[:-1]]
+    for lh, lw, _ in levels:
+        out += [Conv(lh, lw, o, o // 2, 3, 1, False, True, False),
+                Conv(lh, lw, o, o // 4, 3, 1, False, True, True),
+                Conv(lh, lw, o // 4, o // 4, 3, 1, False, True, False),
+                Conv(lh, lw, o // 4, o // 4, 3, 1, False, True, True),
+                Conv(lh, lw, o // 4, o // 4, 3, 1, False, True, False)]
+    a = cfg.num_anchors
+    for per in (2, 4, 2 * cfg.kps_num):
+        out += [Conv(lh, lw, o, a * per, 1, 1, True, False, False)
+                for lh, lw, _ in levels]
+    return out
+
+
+def retinaface_macs(cfg: RetinaFaceConfig, input_size: Tuple[int, int]
+                    ) -> int:
+    """RetinaFace's multiply-accumulates as mmcv's counter counts its
+    modules: a conv's multiply-adds plus its output's size for a bias, a
+    BN twice its size, a ReLU module its output's size (a Bottleneck's one
+    ReLU three times, once a call), the max pool its input's size. The
+    functional upsample, adds, concatenation and the SSH's final ReLU are
+    not modules it counts."""
+    h, w = input_size
+    total = cfg.stem_channels * (h // 2) * (w // 2)          # the max pool
+    for c in retinaface_convs(cfg, h, w):
+        oh, ow = c.out
+        total += c.macs + oh * ow * c.cout * (c.bias + 2 * c.bn + c.relu)
     return total
